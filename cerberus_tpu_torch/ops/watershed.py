@@ -11,6 +11,7 @@ changes. Labels are never overwritten; the output is 0 outside the mask.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -20,28 +21,42 @@ from .cc_label import neighbor_min
 N_LEVELS = 64
 SOURCE = "cerberus_tpu_torch/csrc/watershed.cu"
 REPLACES = "cerberus_tpu/ops/pallas_watershed.py:32"
-# sweeps per read of the device-side "changed" flag (must be even); sweeps
-# past the fixed point change nothing, so this is exact
+# sweeps of the plain versions per convergence test; sweeps past the fixed
+# point change nothing, so this is exact
 K_SWEEPS = 8
+# each entry's last CUDA scratch buffer; its first three int32 words are
+# the call's stats (see flood_stats)
+last_flood_stats: dict = {}
 
 
-def _bind(lib):
-    ws = lib.watershed_launch
-    ws.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    ws.restype = ctypes.c_int
-    prop = lib.propagate_launch
-    prop.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    prop.restype = ctypes.c_int
-    return ws, prop
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The loaded ``watershed`` library with its entries' C types set."""
+    lib = cuda_build.load("watershed")
+    lib.watershed_launch.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.propagate_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.watershed_launch.restype = lib.propagate_launch.restype = ctypes.c_int
+    lib.flood_scratch_bytes.argtypes = [ctypes.c_int] * 2
+    lib.flood_scratch_bytes.restype = ctypes.c_longlong
+    return lib
 
 
-def _scratch(h, w, device):
-    return (torch.empty((h, w), dtype=torch.int32, device=device),
-            torch.empty((h, w), dtype=torch.int32, device=device),
-            torch.empty((h, w), dtype=torch.uint8, device=device),
-            torch.empty((K_SWEEPS,), dtype=torch.int32, device=device))
+def _scratch(lib, h, w, device) -> torch.Tensor:
+    """One byte buffer for the call: keys, levels, per-tile state."""
+    return torch.empty((lib.flood_scratch_bytes(h, w),), dtype=torch.uint8,
+                       device=device)
+
+
+def flood_stats(name: str) -> dict:
+    """Levels visited, passes and tile passes of the last CUDA call of
+    entry ``name`` (``watershed`` or ``propagate_labels``), read back from
+    its device counters (synchronises)."""
+    levels, passes, tile_passes = last_flood_stats[name][:12].view(
+        torch.int32).tolist()
+    return {"levels_visited": levels, "passes": passes,
+            "tile_passes": tile_passes}
 
 
 def watershed(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tensor,
@@ -51,11 +66,11 @@ def watershed(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tensor,
 
     On CUDA tensors this launches ``csrc/watershed.cu``, which replaces the
     TPU kernel ``ops/pallas_watershed.py:_ws_kernel`` (VMEM-resident, <= 1M
-    px) with no size cap. Its bytes bound on an H100 is 9 B/px read and
-    4 B/px written; in practice it is bound by launches, one per sweep over
-    the plane, and it synchronises the stream once every ``K_SWEEPS``
-    sweeps to read the convergence flag. On CPU tensors it runs the plain
-    version.
+    px) with no size cap: an init, then every level of the flood in one
+    cooperative launch that relaxes (distance, label) keys in place in
+    shared-memory tiles, then the label plane. It enqueues on the current
+    stream and does not synchronise. Its bytes bound on an H100 is 9 B/px
+    read and 4 B/px written. On CPU tensors it runs the plain version.
     """
     if image.device.type == "cpu":
         return watershed_plain(image, markers, mask, n_levels)
@@ -66,17 +81,17 @@ def watershed(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tensor,
         raise ValueError("image, markers and mask shapes differ")
     h, w = image.shape
     dev = image.device
+    lib = _library()
     out = torch.empty((h, w), dtype=torch.int32, device=dev)
-    work_a, work_b, level, flags = _scratch(h, w, dev)
-    lohi = torch.empty((2,), dtype=torch.int32, device=dev)
-    ws, _ = _bind(cuda_build.load("watershed"))
+    scratch = _scratch(lib, h, w, dev)
     with torch.cuda.device(dev):
         cuda_build.launch_counts["watershed"] += 1
-        err = ws(image.data_ptr(), markers.data_ptr(), mask.data_ptr(),
-                 out.data_ptr(), work_a.data_ptr(), work_b.data_ptr(),
-                 level.data_ptr(), flags.data_ptr(), lohi.data_ptr(), h, w,
-                 n_levels, K_SWEEPS, cuda_build.stream_handle(image))
+        err = lib.watershed_launch(
+            image.data_ptr(), markers.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), h, w, n_levels,
+            cuda_build.stream_handle(image))
     cuda_build.check(err, "watershed")
+    last_flood_stats["watershed"] = scratch
     return out
 
 
@@ -86,9 +101,9 @@ def propagate_labels(lab: torch.Tensor, allowed: torch.Tensor) -> torch.Tensor:
     watershed flood (``lax_postproc._propagate_labels``).
 
     On CUDA tensors this launches ``csrc/watershed.cu``'s
-    ``propagate_launch`` (its own init, then the watershed's flood at one
-    level), counted under ``propagate_labels``; on CPU tensors the plain
-    version.
+    ``propagate_launch`` (its own init, then the watershed's cooperative
+    flood at one level; no synchronisation), counted under
+    ``propagate_labels``; on CPU tensors the plain version.
     """
     if lab.device.type == "cpu":
         return propagate_labels_plain(lab, allowed)
@@ -98,16 +113,16 @@ def propagate_labels(lab: torch.Tensor, allowed: torch.Tensor) -> torch.Tensor:
         raise ValueError("lab and allowed shapes differ")
     h, w = lab.shape
     dev = lab.device
+    lib = _library()
     out = torch.empty((h, w), dtype=torch.int32, device=dev)
-    work_a, work_b, level, flags = _scratch(h, w, dev)
-    _, prop = _bind(cuda_build.load("watershed"))
+    scratch = _scratch(lib, h, w, dev)
     with torch.cuda.device(dev):
         cuda_build.launch_counts["propagate_labels"] += 1
-        err = prop(lab.data_ptr(), allowed.data_ptr(), out.data_ptr(),
-                   work_a.data_ptr(), work_b.data_ptr(), level.data_ptr(),
-                   flags.data_ptr(), h, w, K_SWEEPS,
-                   cuda_build.stream_handle(lab))
+        err = lib.propagate_launch(
+            lab.data_ptr(), allowed.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), h, w, cuda_build.stream_handle(lab))
     cuda_build.check(err, "propagate_labels")
+    last_flood_stats["propagate_labels"] = scratch
     return out
 
 

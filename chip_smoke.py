@@ -12,8 +12,12 @@ Phases, each printing JSON lines:
      card, exactly, at the main path's shapes (CC on 600^2 and 1000^2
      foreground masks and a thin spiral, the histogram on a 1000^2 compacted
      id plane, the watershed and its one-level ``propagate_labels`` entry
-     on a 1000^2 nuclei-like plane), with median CUDA-event times of
-     kernel, plain version and, for the histogram, ``torch.bincount``;
+     on a 1000^2 nuclei-like plane, the same plane quantised into
+     plateaus, and a 1000^2 one-pixel spiral corridor flooded from both
+     ends), with median CUDA-event times of kernel, plain version and, for
+     the histogram, ``torch.bincount``; each flood case also prints the
+     levels visited, passes and tile passes of the entry's last call, read
+     back from its device counters;
   3. forward: a full-width ResNet-34 NetDesc with seeded random weights and
      randomised BN statistics, written as ``weights.tar`` and loaded through
      ``InferManager``; the card's f32 forward (TF32 off) against the port's
@@ -133,13 +137,13 @@ def phase_kernels(torch, dev):
         REPLACES as H_REPLACES, SOURCE as H_SOURCE, hist16384,
         hist16384_plain)
     from cerberus_tpu_torch.ops.watershed import (
-        REPLACES as WS_REPLACES, SOURCE as WS_SOURCE, propagate_labels,
-        propagate_labels_plain, watershed, watershed_plain)
+        REPLACES as WS_REPLACES, SOURCE as WS_SOURCE, flood_stats,
+        propagate_labels, propagate_labels_plain, watershed, watershed_plain)
 
     rows, worst = {}, {}
 
     def check(name, case, got, ref, ms, plain_ms, lib_ms, bytes_, ops,
-              report):
+              report, extra=None):
         err = int((got.long() - ref.long()).abs().max()) if got.numel() \
             else 0
         bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
@@ -148,7 +152,7 @@ def phase_kernels(torch, dev):
         emit({"phase": "kernel", "name": name, "case": case,
               "shape": list(got.shape), "max_abs_err": err, "ms": ms,
               "plain_ms": plain_ms, "library_ms": lib_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by})
+              "bound_ms": bound_ms, "bound_by": bound_by, **(extra or {})})
         if err != 0:
             raise AssertionError("%s/%s differs from its plain version"
                                  % (name, case))
@@ -193,25 +197,51 @@ def phase_kernels(torch, dev):
               minlength=D.HIST_CAP), 20),
           ids.numel() * 4 + D.HIST_CAP * 4, ids.numel(), True)
 
-    inner = blob_prob((1000, 1000), 1600, 4, 3, 9)
-    image = torch.from_numpy(-inner).to(dev)
-    markers = connected_components(torch.from_numpy(inner > 0.6).to(dev))
-    wmask = torch.from_numpy(inner > 0.1).to(dev)
-    got = watershed(image, markers, wmask)
-    ref = watershed_plain(image, markers, wmask)
-    n = image.numel()
     # what the function needs: a level-bucketed wavefront flood touches each
     # pixel a constant number of times (bucket, then one neighbour minimum)
-    check("watershed", "nuclei1000", got, ref,
-          cuda_ms(lambda: watershed(image, markers, wmask), 5),
-          cuda_ms(lambda: watershed_plain(image, markers, wmask), 2), None,
-          n * (4 + 4 + 1) + n * 4, n * 6, True)
-    got = propagate_labels(markers, wmask)
-    ref = propagate_labels_plain(markers, wmask)
-    check("propagate_labels", "nuclei1000", got, ref,
-          cuda_ms(lambda: propagate_labels(markers, wmask), 5),
-          cuda_ms(lambda: propagate_labels_plain(markers, wmask), 2), None,
-          n * (4 + 1) + n * 4, n * 4, True)
+    inner = blob_prob((1000, 1000), 1600, 4, 3, 9)
+    spiral_mask = spiral(1000)
+    ys, xs = np.nonzero(spiral_mask)
+    spiral_markers = np.zeros(spiral_mask.shape, np.int32)
+    spiral_markers[0, 0] = 7  # the corridor's outer end
+    ring = np.abs(ys - 500) + np.abs(xs - 500)
+    spiral_markers[ys[ring.argmin()], xs[ring.argmin()]] = 3  # near the centre
+    # case, image, markers (None: the cores of the probability plane), mask
+    # (or that probability plane), runs of the plain version
+    flood_cases = [
+        ("nuclei1000", -inner, None, inner, 2),
+        ("plateau1000", -np.round(inner * 8) / 8, None,
+         np.round(inner * 8) / 8, 2),
+        ("spiral1000", np.zeros(spiral_mask.shape, np.float32),
+         spiral_markers, spiral_mask, 1),
+    ]
+    for case, img_np, mk_np, prob_np, plain_iters in flood_cases:
+        image = torch.from_numpy(np.ascontiguousarray(img_np, np.float32)).to(
+            dev)
+        if mk_np is None:  # nuclei recipe: cores as markers, prob as mask
+            markers = connected_components(torch.from_numpy(
+                prob_np > 0.6).to(dev))
+            wmask = torch.from_numpy(prob_np > 0.1).to(dev)
+        else:
+            markers = torch.from_numpy(mk_np).to(dev)
+            wmask = torch.from_numpy(prob_np).to(dev)
+        n = image.numel()
+        report = case == "nuclei1000"
+        for name, fn, plain, args, bytes_ in (
+                ("watershed", watershed, watershed_plain,
+                 (image, markers, wmask), n * (4 + 4 + 1) + n * 4),
+                ("propagate_labels", propagate_labels,
+                 propagate_labels_plain, (markers, wmask),
+                 n * (4 + 1) + n * 4)):
+            got = fn(*args)
+            ms = cuda_ms(lambda: fn(*args), 5)
+            stats = flood_stats(name)
+            refs = []  # the spiral's plain version runs once, timed
+            plain_ms = cuda_ms(lambda: refs.append(plain(*args)),
+                               plain_iters, warmup=int(plain_iters > 1))
+            ref = refs[-1]
+            check(name, case, got, ref, ms, plain_ms, None, bytes_,
+                  n * (6 if name == "watershed" else 4), report, stats)
     for name in rows:
         rows[name]["max_abs_err"] = worst[name]
     sources = {"cc_label": (CC_SOURCE, CC_REPLACES),

@@ -46,6 +46,19 @@ def _blob_prob(hw, n, seed, rmin=4, rmax=14):
     return prob
 
 
+def _spiral(n):
+    mask = np.zeros((n, n), bool)
+    t, l, b, r = 0, 0, n - 1, n - 1
+    while t <= b and l <= r:
+        mask[t, l:r + 1] = mask[b, l:r + 1] = True
+        mask[t:b + 1, r] = True
+        mask[t + 2:b + 1, l] = True
+        if t + 2 <= b:
+            mask[t + 2, l:r - 1] = True
+        t, l, b, r = t + 2, l + 2, b - 2, r - 2
+    return mask
+
+
 @pytest.mark.parametrize("hw,density", [((600, 600), 0.5), ((1000, 1000), 0.3),
                                         ((37, 1029), 0.6)])
 def test_cc_label_matches_plain(dev, hw, density):
@@ -57,17 +70,7 @@ def test_cc_label_matches_plain(dev, hw, density):
 
 
 def test_cc_label_spiral(dev):
-    n = 301
-    mask = np.zeros((n, n), bool)
-    t, l, b, r = 0, 0, n - 1, n - 1
-    while t <= b and l <= r:
-        mask[t, l:r + 1] = mask[b, l:r + 1] = True
-        mask[t:b + 1, r] = True
-        mask[t + 2:b + 1, l] = True
-        if t + 2 <= b:
-            mask[t + 2, l:r - 1] = True
-        t, l, b, r = t + 2, l + 2, b - 2, r - 2
-    m = torch.from_numpy(mask).to(dev)
+    m = torch.from_numpy(_spiral(301)).to(dev)
     got = connected_components(m)
     assert torch.equal(got, connected_components_plain(m))
     assert int(got[m].unique().numel()) == 1
@@ -94,6 +97,59 @@ def test_watershed_matches_plain(dev):
                        propagate_labels_plain(markers, allowed))
     assert cuda_build.launch_counts["propagate_labels"] == 1
     assert cuda_build.launch_counts["watershed"] == 0
+
+
+def _flood_case(name):
+    """(image, markers, mask) as numpy for the flood's edge cases."""
+    rng = np.random.default_rng(len(name))
+    if name == "spiral301":
+        mask = _spiral(301)
+        ys, xs = np.nonzero(mask)
+        markers = np.zeros(mask.shape, np.int32)
+        markers[0, 0] = 7  # the outer end of the corridor
+        inner = np.argmax(np.abs(ys - 150) + np.abs(xs - 150) == (
+            np.abs(ys - 150) + np.abs(xs - 150)).min())
+        markers[ys[inner], xs[inner]] = 3  # the inner end
+        return np.zeros(mask.shape, np.float32), markers, mask
+    if name == "blobs1000":
+        prob = _blob_prob((1000, 1000), 600, seed=4, rmin=3, rmax=12)
+        markers = connected_components_plain(torch.from_numpy(prob > 0.6))
+        return -prob, markers.numpy(), prob > 0.1
+    hw = {"ragged37x1029": (37, 1029), "row1x513": (1, 513),
+          "col513x1": (513, 1)}.get(name, (150, 190))
+    image = np.round(rng.random(hw) * 6).astype(np.float32)
+    mask = rng.random(hw) < 0.85
+    markers = np.where(rng.random(hw) < 0.01,
+                       rng.integers(1, hw[0] * hw[1] + 2, hw), 0)
+    markers = markers.astype(np.int32)
+    if name == "constant":
+        image[:] = 0.5
+    elif name == "empty_mask":
+        mask[:] = False
+    elif name == "no_markers":
+        markers[:] = 0
+    elif name == "markers_outside_mask":
+        markers[mask] = 0
+        markers[~mask] = rng.integers(1, 50, int((~mask).sum()))
+    return image, markers, mask
+
+
+@pytest.mark.parametrize("name", [
+    "constant", "spiral301", "ragged37x1029", "row1x513", "col513x1",
+    "empty_mask", "no_markers", "markers_outside_mask", "blobs1000"])
+def test_flood_entries_match_plain(dev, name):
+    image, markers, mask = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                            for a in _flood_case(name))
+    cuda_build.reset_launch_counts()
+    got = watershed(image, markers, mask)
+    assert cuda_build.launch_counts["watershed"] == 1
+    assert torch.equal(got, watershed_plain(image, markers, mask))
+    got = propagate_labels(markers, mask)
+    assert cuda_build.launch_counts["propagate_labels"] == 1
+    assert cuda_build.launch_counts["watershed"] == 1
+    assert torch.equal(got, propagate_labels_plain(markers, mask))
+    if name == "spiral301":  # two markers share the corridor
+        assert set(got[mask].unique().tolist()) == {3, 7}
 
 
 def test_families_match_plain(dev):

@@ -8,6 +8,7 @@ kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -21,38 +22,53 @@ REPLACES = ("cerberus_tpu/ops/pallas_cc.py:88; "
 _JUMP_EVERY = 8  # sweeps per convergence test in the plain version
 
 
-def _bind(lib):
-    fn = lib.cc_label_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The loaded ``cc_label`` library with its entries' C types set."""
+    lib = cuda_build.load("cc_label")
+    lib.cc_label_launch.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.launch_floor_launch.argtypes = [ctypes.c_void_p]
+    lib.cc_label_launch.restype = lib.launch_floor_launch.restype = \
+        ctypes.c_int
+    return lib
 
 
 def connected_components(mask: torch.Tensor) -> torch.Tensor:
     """Label a (H, W) bool mask.
 
-    On a CUDA tensor this launches ``csrc/cc_label.cu``, the union-find
-    kernel that replaces the TPU kernels ``ops/pallas_cc.py:_cc_kernel``
-    (VMEM-resident, <= 400k px) and ``ops/pallas_cc_blocked.py:
-    _strip_kernel`` (row strips, larger canvases) at any size. It is bound
-    by bytes on an H100: the mask read once and the labels written once
-    (5 B/px), plus a 4 B/px parent scratch plane. On a CPU tensor it runs
-    the plain version.
+    On a CUDA tensor this launches ``csrc/cc_label.cu``, which replaces the
+    TPU kernels ``ops/pallas_cc.py:_cc_kernel`` (VMEM-resident, <= 400k px)
+    and ``ops/pallas_cc_blocked.py:_strip_kernel`` (row strips, larger
+    canvases) at any size below 2^31 - 1 pixels: 32 x 128 tiles labelled in
+    shared memory, united across tile borders by union-find in the output
+    plane itself, then flattened, in one cooperative launch. It is bound by
+    bytes on an H100: the mask read once and the labels written once
+    (5 B/px). On a CPU tensor it runs the plain version.
     """
     if mask.device.type == "cpu":
         return connected_components_plain(mask)
     cuda_build.require_cuda(mask, "mask", torch.bool, ndim=2)
     h, w = mask.shape
+    if h * w >= 2 ** 31 - 1:
+        raise ValueError("mask has %d pixels: labels are int32" % (h * w))
+    lib = _library()
     out = torch.empty((h, w), dtype=torch.int32, device=mask.device)
-    parent = torch.empty((h, w), dtype=torch.int32, device=mask.device)
-    fn = _bind(cuda_build.load("cc_label"))
-    with torch.cuda.device(mask.device):
+    with cuda_build.device_guard(mask):
         cuda_build.launch_counts["cc_label"] += 1
-        err = fn(mask.data_ptr(), parent.data_ptr(), out.data_ptr(), h, w,
-                 cuda_build.stream_handle(mask))
+        err = lib.cc_label_launch(mask.data_ptr(), out.data_ptr(), h, w,
+                                  cuda_build.stream_handle(mask))
     cuda_build.check(err, "cc_label")
     return out
+
+
+def launch_floor(like: torch.Tensor) -> None:
+    """Launch an empty kernel on the current stream of ``like``'s device
+    through the same route as the kernels (a yardstick; counted nowhere)."""
+    lib = _library()
+    with cuda_build.device_guard(like):
+        err = lib.launch_floor_launch(cuda_build.stream_handle(like))
+    cuda_build.check(err, "launch_floor")
 
 
 def neighbor_min(lab: torch.Tensor, big: int) -> torch.Tensor:

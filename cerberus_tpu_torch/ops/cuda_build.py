@@ -17,6 +17,7 @@ adds one where it launches its kernel and nowhere else.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -109,11 +110,28 @@ def check(err: int, what: str) -> None:
         raise RuntimeError("%s failed: CUDA error %d" % (what, err))
 
 
-def stream_handle(tensor) -> ctypes.c_void_p:
+def stream_handle(tensor) -> int:
+    """The raw ``cudaStream_t`` of the current stream on ``tensor``'s
+    device, for a ``c_void_p`` argument. (``torch.cuda.current_stream``
+    builds a ``Stream`` object per call, several microseconds of host time
+    that a kernel of a few microseconds cannot hide.)"""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(tensor.device)
-                           .cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(tensor.device.index)
+
+
+_NO_GUARD = contextlib.nullcontext()
+
+
+def device_guard(tensor):
+    """A context in which ``tensor``'s device is the current one, as the
+    CUDA runtime calls of a C entry need; nothing is switched (and nothing
+    paid) when it already is."""
+    import torch
+
+    if torch.cuda.current_device() == tensor.device.index:
+        return _NO_GUARD
+    return torch.cuda.device(tensor.device)
 
 
 def require_cuda(tensor, name: str, dtype, ndim=None) -> None:

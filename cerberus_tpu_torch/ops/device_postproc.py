@@ -7,6 +7,7 @@ contracts so label maps are byte-equal:
     (``cc_label`` kernel);
   * ``remove_small_objects``: compaction by root-rank cumsum, sizes from
     the ``hist16384`` kernel when there are fewer than 16384 components
+    (told that only bins 0..n are live)
     (``torch.bincount`` over the flat-index id space otherwise); returns
     COMPACTED ids;
   * ``fill_holes`` / ``fill_label_holes``: one ring-padded background
@@ -132,7 +133,7 @@ def remove_small_objects(lab: torch.Tensor, min_size: int,
     lab_k, n = compact_labels(lab)
     zero = torch.zeros_like(lab_k)
     if n < HIST_CAP:
-        keep = impl.hist(lab_k) >= min_size
+        keep = impl.hist(lab_k, n + 1) >= min_size  # ids are 0..n
         keep[0] = False
         return torch.where(keep[lab_k.clamp(0, HIST_CAP - 1).long()], lab_k,
                            zero)

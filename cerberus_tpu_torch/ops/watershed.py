@@ -84,7 +84,7 @@ def watershed(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tensor,
     lib = _library()
     out = torch.empty((h, w), dtype=torch.int32, device=dev)
     scratch = _scratch(lib, h, w, dev)
-    with torch.cuda.device(dev):
+    with cuda_build.device_guard(image):
         cuda_build.launch_counts["watershed"] += 1
         err = lib.watershed_launch(
             image.data_ptr(), markers.data_ptr(), mask.data_ptr(),
@@ -116,7 +116,7 @@ def propagate_labels(lab: torch.Tensor, allowed: torch.Tensor) -> torch.Tensor:
     lib = _library()
     out = torch.empty((h, w), dtype=torch.int32, device=dev)
     scratch = _scratch(lib, h, w, dev)
-    with torch.cuda.device(dev):
+    with cuda_build.device_guard(lab):
         cuda_build.launch_counts["propagate_labels"] += 1
         err = lib.propagate_launch(
             lab.data_ptr(), allowed.data_ptr(), out.data_ptr(),

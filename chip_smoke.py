@@ -10,14 +10,26 @@ Phases, each printing JSON lines:
      (every ``csrc/*.cu`` compiled by nvcc in parallel, at first use);
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, exactly, at the main path's shapes (CC on 600^2 and 1000^2
-     foreground masks and a thin spiral, the histogram on a 1000^2 compacted
-     id plane, the watershed and its one-level ``propagate_labels`` entry
-     on a 1000^2 nuclei-like plane, the same plane quantised into
-     plateaus, and a 1000^2 one-pixel spiral corridor flooded from both
-     ends), with median CUDA-event times of kernel, plain version and, for
-     the histogram, ``torch.bincount``; each flood case also prints the
-     levels visited, passes and tile passes of the entry's last call, read
-     back from its device counters;
+     foreground masks, a 1002^2 ring-padded background plane and thin
+     spirals; the histogram on a 1000^2 compacted id plane, with and
+     without the family's ``n_live`` hint, and the two alternated over
+     twelve rounds on a ``hist_n_live_pairs`` line; the
+     watershed and its one-level ``propagate_labels`` entry on a 1000^2
+     nuclei-like plane, the same plane quantised into plateaus, and a
+     1000^2 one-pixel spiral corridor flooded from both ends), with median
+     CUDA-event times of kernel, plain version and, for the histogram,
+     ``torch.bincount``. Each kernel case times a call four ways: ``ms``
+     (one call per CUDA-event pair, the host's enqueue inside the window),
+     ``device_ms`` (the call's kernels and memsets alone, summed from
+     ``torch.profiler``; ``device_ms_from`` says ``queue`` where it is
+     ``queued_ms`` instead: a call of over 20 ms, or a profile that kept
+     losing events), ``host_us`` (host wall time to enqueue one call, no
+     synchronise inside), and ``queued_ms`` (per call when many are
+     enqueued behind one event pair). A ``launch_floor`` line gives the
+     same figures for an empty kernel through the same ctypes route, and a
+     ``host_parts_us`` line the host's cost of a wrapper's pieces. Each
+     flood case also prints the levels visited, passes and tile passes of
+     the entry's last call, read back from its device counters;
   3. forward: a full-width ResNet-34 NetDesc with seeded random weights and
      randomised BN statistics, written as ``weights.tar`` and loaded through
      ``InferManager``; the card's f32 forward (TF32 off) against the port's
@@ -84,6 +96,78 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int):
+    """The device's own milliseconds per call of ``fn()``: every kernel,
+    memset and copy that ``torch.profiler`` saw on the card over ``calls``
+    calls, summed and divided. Gaps between them and the host's enqueue are
+    not in it. Also returns the microseconds per call by activity name.
+    The profiler now and then loses events (seen on calls of hundreds of
+    milliseconds): a profile that does not hold every activity once (or n
+    times) per call is taken again, and after three such, None is returned.
+    """
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        parts, whole = {}, True
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            parts[evt.key[:48]] = parts.get(evt.key[:48], 0.0) + us / calls
+            whole &= evt.count % calls == 0
+        if parts and whole:
+            return sum(parts.values()) / 1e3, parts
+    return None
+
+
+def enqueue_times(fn, calls: int):
+    """(host microseconds to enqueue one call, milliseconds per call with
+    the queue kept full): ``calls`` calls of ``fn()`` with no synchronise
+    inside, under one host-clock window and behind one CUDA-event pair."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return host / calls * 1e6, start.elapsed_time(end) / calls
+
+
+def kernel_times(fn, iters: int) -> dict:
+    """``ms``, ``device_ms``, ``host_us`` and ``queued_ms`` of one call of a
+    kernel wrapper (see the module note). The unsynchronised loops are kept
+    to ~30 ms of device work, so the launch queue never fills.
+    ``device_ms_from`` says where ``device_ms`` comes from: ``profiler``,
+    or ``queue`` (it is ``queued_ms``) for a call of over 20 ms, whose
+    enqueue the device cannot notice, and where the profiler kept losing
+    events."""
+    ms = cuda_ms(fn, iters)
+    calls = max(3, min(300, int(30 / max(ms, 1e-3))))
+    host_us, queued_ms = enqueue_times(fn, calls)
+    profiled = device_ms(fn, min(calls, 50)) if ms < 20 else None
+    dev_ms, parts = profiled or (queued_ms, {})
+    return {"ms": ms, "device_ms": dev_ms,
+            "device_ms_from": "profiler" if profiled else "queue",
+            "host_us": host_us, "queued_ms": queued_ms,
+            "device_parts_us": parts}
+
+
 def blob_prob(hw, n, seed, rmin, rmax):
     """Max of n seeded cone blobs: a probability plane with nuclei- or
     gland-like components."""
@@ -129,6 +213,7 @@ def synthetic_image(hw, seed):
 
 def phase_kernels(torch, dev):
     """Each kernel vs its plain version on the card, exact."""
+    from cerberus_tpu_torch.ops import cc_label as cc_mod
     from cerberus_tpu_torch.ops import device_postproc as D
     from cerberus_tpu_torch.ops.cc_label import (
         REPLACES as CC_REPLACES, SOURCE as CC_SOURCE,
@@ -140,9 +225,31 @@ def phase_kernels(torch, dev):
         REPLACES as WS_REPLACES, SOURCE as WS_SOURCE, flood_stats,
         propagate_labels, propagate_labels_plain, watershed, watershed_plain)
 
+    from cerberus_tpu_torch.ops import cuda_build
+
+    like = torch.empty(1, device=dev)
+    emit({"phase": "launch_floor",
+          **kernel_times(lambda: cc_mod.launch_floor(like), 50)})
+
+    def with_device():
+        with torch.cuda.device(dev):
+            pass
+
+    # what the host pays for the pieces of a wrapper's call
+    emit({"phase": "host_parts_us", **{
+        name: enqueue_times(fn, 1000)[0] for name, fn in (
+            ("stream_object", lambda: torch.cuda.current_stream(
+                dev).cuda_stream),
+            ("stream_handle", lambda: cuda_build.stream_handle(like)),
+            ("device_context", with_device),
+            ("device_guard", lambda: cuda_build.device_guard(like)),
+            ("empty_1000x1000_int32", lambda: torch.empty(
+                (1000, 1000), dtype=torch.int32, device=dev)),
+            ("launch_floor", lambda: cc_mod.launch_floor(like)))}})
+
     rows, worst = {}, {}
 
-    def check(name, case, got, ref, ms, plain_ms, lib_ms, bytes_, ops,
+    def check(name, case, got, ref, times, plain_ms, lib_ms, bytes_, ops,
               report, extra=None):
         err = int((got.long() - ref.long()).abs().max()) if got.numel() \
             else 0
@@ -150,7 +257,7 @@ def phase_kernels(torch, dev):
         ops_ms = ops / CUDA_CORE_OPS_PER_S * 1e3
         bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
         emit({"phase": "kernel", "name": name, "case": case,
-              "shape": list(got.shape), "max_abs_err": err, "ms": ms,
+              "shape": list(got.shape), "max_abs_err": err, **times,
               "plain_ms": plain_ms, "library_ms": lib_ms,
               "bound_ms": bound_ms, "bound_by": bound_by, **(extra or {})})
         if err != 0:
@@ -158,26 +265,33 @@ def phase_kernels(torch, dev):
                                  % (name, case))
         worst[name] = max(worst.get(name, 0), err)
         if report:
-            rows[name] = {"ms": ms, "plain_ms": plain_ms,
+            rows[name] = {"ms": times["ms"], "device_ms": times["device_ms"],
+                          "device_ms_from": times["device_ms_from"],
+                          "host_us": times["host_us"], "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": lib_ms}
 
+    ring_bg = np.pad(blob_prob((1000, 1000), 1600, 2, 3, 12) <= 0.5, 1,
+                     constant_values=True)  # as fill_holes pads a plane
+    # case, mask, runs of the plain version, in the kernels line
     cc_cases = [
-        ("fg600", torch.from_numpy(blob_prob((600, 600), 600, 1, 3, 12)
-                                   > 0.5), False),
-        ("spiral512", torch.from_numpy(spiral(512)), False),
-        ("fg1000", torch.from_numpy(blob_prob((1000, 1000), 1600, 2, 3, 12)
-                                    > 0.5), True),
+        ("fg600", blob_prob((600, 600), 600, 1, 3, 12) > 0.5, 3, False),
+        ("spiral512", spiral(512), 3, False),
+        ("fg1002_ring", ring_bg, 3, False),
+        ("spiral1000", spiral(1000), 1, False),
+        ("fg1000", blob_prob((1000, 1000), 1600, 2, 3, 12) > 0.5, 3, True),
     ]
-    for case, mask, report in cc_cases:
-        mask = mask.to(dev).contiguous()
+    for case, mask, plain_iters, report in cc_cases:
+        mask = torch.from_numpy(mask).to(dev).contiguous()
         n = mask.numel()
         got = connected_components(mask)
-        ref = connected_components_plain(mask)
-        check("cc_label", case, got, ref,
-              cuda_ms(lambda: connected_components(mask), 20),
-              cuda_ms(lambda: connected_components_plain(mask), 3), None,
-              n * 1 + n * 4, n * 4, report)
+        refs = []
+        plain_ms = cuda_ms(
+            lambda: refs.append(connected_components_plain(mask)),
+            plain_iters, warmup=int(plain_iters > 1))
+        check("cc_label", case, got, refs[-1],
+              kernel_times(lambda: connected_components(mask), 20),
+              plain_ms, None, n * 1 + n * 4, n * 4, report)
 
     prob = blob_prob((1000, 1000), 1600, 3, 3, 12)
     lab = connected_components(torch.from_numpy(prob > 0.5).to(dev))
@@ -185,17 +299,45 @@ def phase_kernels(torch, dev):
     ids = ids.contiguous()
     if n_ids >= D.HIST_CAP:
         raise AssertionError("compacted id plane has %d ids" % n_ids)
-    got, ref = hist16384(ids), hist16384_plain(ids)
+    ref = hist16384_plain(ids)
     lib = torch.bincount(ids.reshape(-1).clamp(0, D.HIST_CAP - 1).long(),
                          minlength=D.HIST_CAP)
     if not torch.equal(lib.int(), ref):
         raise AssertionError("torch.bincount disagrees with hist16384_plain")
-    check("hist16384", "ids1000", got, ref, cuda_ms(lambda: hist16384(ids), 50),
-          cuda_ms(lambda: hist16384_plain(ids), 20),
-          cuda_ms(lambda: torch.bincount(
-              ids.reshape(-1).clamp(0, D.HIST_CAP - 1).long(),
-              minlength=D.HIST_CAP), 20),
-          ids.numel() * 4 + D.HIST_CAP * 4, ids.numel(), True)
+    plain_ms = cuda_ms(lambda: hist16384_plain(ids), 20)
+    lib_ms = cuda_ms(lambda: torch.bincount(
+        ids.reshape(-1).clamp(0, D.HIST_CAP - 1).long(),
+        minlength=D.HIST_CAP), 20)
+    # the family's call (remove_small_objects) names its live bins; that
+    # case is the kernels line's
+    hist_cases = {"ids1000": (), "ids1000_live": (n_ids + 1,)}
+    for case, extra_args in hist_cases.items():
+        check("hist16384", case, hist16384(ids, *extra_args), ref,
+              kernel_times(lambda: hist16384(ids, *extra_args), 50),
+              plain_ms, lib_ms, ids.numel() * 4 + D.HIST_CAP * 4,
+              ids.numel(), case == "ids1000_live", {"n_ids": n_ids})
+    # what the hint is worth beyond the host clock's swing between two
+    # measurements: the two cases alternated, the order swapped every round
+    pairs = {case: {"ms": [], "host_us": [], "queued_ms": []}
+             for case in hist_cases}
+    for rnd in range(12):
+        for case in sorted(hist_cases, reverse=bool(rnd % 2)):
+            extra_args = hist_cases[case]
+            ms = cuda_ms(lambda: hist16384(ids, *extra_args), 50)
+            host_us, queued_ms = enqueue_times(
+                lambda: hist16384(ids, *extra_args), 300)
+            for key, value in (("ms", ms), ("host_us", host_us),
+                               ("queued_ms", queued_ms)):
+                pairs[case][key].append(value)
+    emit({"phase": "hist_n_live_pairs", "rounds": 12, "n_ids": n_ids,
+          "median": {case: {key: statistics.median(values)
+                            for key, values in times.items()}
+                     for case, times in pairs.items()},
+          "rounds_won_by_n_live": {key: sum(
+              live < plain for live, plain in zip(
+                  pairs["ids1000_live"][key], pairs["ids1000"][key]))
+              for key in ("ms", "host_us", "queued_ms")},
+          "all": pairs})
 
     # what the function needs: a level-bucketed wavefront flood touches each
     # pixel a constant number of times (bucket, then one neighbour minimum)
@@ -234,13 +376,13 @@ def phase_kernels(torch, dev):
                  propagate_labels_plain, (markers, wmask),
                  n * (4 + 1) + n * 4)):
             got = fn(*args)
-            ms = cuda_ms(lambda: fn(*args), 5)
+            times = kernel_times(lambda: fn(*args), 5)
             stats = flood_stats(name)
             refs = []  # the spiral's plain version runs once, timed
             plain_ms = cuda_ms(lambda: refs.append(plain(*args)),
                                plain_iters, warmup=int(plain_iters > 1))
             ref = refs[-1]
-            check(name, case, got, ref, ms, plain_ms, None, bytes_,
+            check(name, case, got, ref, times, plain_ms, None, bytes_,
                   n * (6 if name == "watershed" else 4), report, stats)
     for name in rows:
         rows[name]["max_abs_err"] = worst[name]
@@ -429,6 +571,9 @@ def run() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "device_ms": row["device_ms"],
+                        "device_ms_from": row["device_ms_from"],
+                        "host_us": row["host_us"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],

@@ -83,6 +83,90 @@ def test_hist16384_matches_plain(dev):
     assert torch.equal(hist16384(ids), hist16384_plain(ids))
 
 
+def _cc_case(name):
+    rng = np.random.default_rng(len(name))
+    if name == "empty":
+        return np.zeros((130, 200), bool)
+    if name == "full":
+        return np.ones((130, 200), bool)
+    if name == "ring1002":  # a background plane as fill_holes pads it
+        bg = _blob_prob((1000, 1000), 600, seed=5, rmin=3, rmax=12) <= 0.5
+        return np.pad(bg, 1, constant_values=True)
+    if name == "spiral1000":
+        return _spiral(1000)
+    h, w = (int(v) for v in name.split("x"))
+    return rng.random((h, w)) < 0.55
+
+
+@pytest.mark.parametrize("name", ["63x65", "1x513", "513x1", "37x1029",
+                                  "130x130", "32x128", "33x129", "empty",
+                                  "full", "ring1002", "spiral1000"])
+def test_cc_label_edge_shapes_match_plain(dev, name):
+    """Planes that the 32 x 128 tiles cut at every edge, a plane of exactly
+    one tile, and planes with one large component."""
+    mask = torch.from_numpy(_cc_case(name)).to(dev)
+    cuda_build.reset_launch_counts()
+    got = connected_components(mask)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts["cc_label"] == 1
+    assert torch.equal(got, connected_components_plain(mask))
+    if name == "ring1002":
+        assert int(got[0, 0]) == 1 and int((got == 1).sum()) >= 4 * 1001
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+def test_cc_label_unaligned_mask(dev, offset):
+    """Rows that start off a 16-byte boundary, in a buffer that does too."""
+    h, w = 150, 203
+    flat = torch.from_numpy(np.random.default_rng(offset).random(
+        offset + h * w) < 0.6).to(dev)
+    mask = flat[offset:].view(h, w)
+    assert mask.is_contiguous() and mask.data_ptr() % 16 == offset % 16
+    got = connected_components(mask)
+    assert torch.equal(got, connected_components_plain(mask.clone()))
+
+
+def test_cc_label_zero_size(dev):
+    cuda_build.reset_launch_counts()
+    got = connected_components(torch.zeros((0, 7), dtype=torch.bool,
+                                           device=dev))
+    assert got.shape == (0, 7) and got.dtype == torch.int32
+
+
+@pytest.mark.parametrize("n_live", [1, 2, 257, 16384])
+@pytest.mark.parametrize("inside", [True, False])
+def test_hist16384_n_live(dev, n_live, inside):
+    rng = np.random.default_rng(n_live + inside)
+    ids = rng.integers(0, n_live, (1000, 1000)).astype(np.int32)
+    ids[300:] = 0  # long runs of one id, as in a label plane
+    if not inside:
+        ids[::5, ::3] = rng.integers(-9, 16400, ids[::5, ::3].shape)
+    ids = torch.from_numpy(ids).to(dev)
+    assert torch.equal(hist16384(ids, n_live), hist16384_plain(ids))
+
+
+@pytest.mark.parametrize("offset,numel", [(0, 0), (0, 1), (1, 2), (1, 7),
+                                          (2, 4099), (3, 1000001),
+                                          (0, 1000003), (1, 1002 * 333)])
+def test_hist16384_unaligned_and_ragged(dev, offset, numel):
+    """A base pointer off a 16-byte boundary and a length that is no
+    multiple of 4: the ids around the aligned body are counted one by one."""
+    flat = torch.from_numpy(np.random.default_rng(numel).integers(
+        0, 900, offset + numel).astype(np.int32)).to(dev)
+    ids = flat[offset:]
+    assert ids.data_ptr() % 16 == 4 * offset
+    for n_live in (900, 16384):
+        got = hist16384(ids, n_live)
+        assert torch.equal(got, hist16384_plain(ids.clone()))
+        assert int(got.sum()) == numel
+
+
+def test_hist16384_all_ids_equal(dev):
+    ids = torch.full((777, 1001), 5, dtype=torch.int32, device=dev)
+    got = hist16384(ids, 6)
+    assert int(got[5]) == ids.numel() and int(got.sum()) == ids.numel()
+
+
 def test_watershed_matches_plain(dev):
     prob = _blob_prob((512, 640), 300, seed=2)
     prob = np.round(prob * 16) / 16

@@ -22,8 +22,13 @@ from cerberus_tpu_torch.ops.cc_label import (
     connected_components,
     connected_components_plain,
 )
+from cerberus_tpu_torch.ops import device_postproc as D
 from cerberus_tpu_torch.ops.device_postproc import disk_kernel
-from cerberus_tpu_torch.ops.hist16384 import N_BINS, hist16384
+from cerberus_tpu_torch.ops.hist16384 import (
+    N_BINS,
+    hist16384,
+    hist16384_plain,
+)
 from cerberus_tpu_torch.ops.watershed import (
     propagate_labels,
     watershed,
@@ -146,6 +151,49 @@ def test_hist_extreme_and_out_of_range_ids():
     assert got.sum() == 333
     np.testing.assert_array_equal(
         got, np.asarray(hist16384_pallas(ids, interpret=True)))
+
+
+@pytest.mark.parametrize("n_live", [1, 2, 257, N_BINS])
+@pytest.mark.parametrize("inside", [True, False])
+def test_hist_n_live_is_only_a_hint(n_live, inside):
+    """``n_live`` promises ids in [0, n_live); counts are exact whether the
+    promise holds or not (ids beyond it, negative or past the last bin)."""
+    rng = np.random.default_rng(n_live + inside)
+    ids = rng.integers(0, n_live, size=(61, 173)).astype(np.int32)
+    if not inside:
+        ids[::7, ::3] = rng.integers(-9, N_BINS + 9, size=ids[::7, ::3].shape)
+    ref = np.bincount(np.clip(ids, 0, N_BINS - 1).reshape(-1),
+                      minlength=N_BINS)
+    for fn in (hist16384, hist16384_plain):
+        got = fn(torch.from_numpy(ids), n_live).numpy()
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        ref, np.asarray(hist16384_pallas(ids, interpret=True)))
+
+
+@pytest.mark.parametrize("n_live", [0, -1, N_BINS + 1])
+def test_hist_n_live_out_of_range_raises(n_live):
+    with pytest.raises(ValueError):
+        hist16384(torch.zeros((4,), dtype=torch.int32), n_live)
+
+
+def test_remove_small_objects_passes_its_live_bins():
+    """The family tells the histogram that only bins 0..n are live, and
+    every id it hands over keeps that promise."""
+    mask = _blobs(seed=3, hw=(64, 96), n=6)
+    lab = connected_components_plain(torch.from_numpy(mask))
+    seen = []
+
+    def hist(ids, n_live):
+        seen.append((int(ids.min()), int(ids.max()), n_live))
+        return hist16384_plain(ids, n_live)
+
+    got = D.remove_small_objects(lab, 30, D.PLAIN._replace(hist=hist))
+    ref = np.asarray(L.remove_small_objects(jnp.asarray(lab.numpy()), 30))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    (lo, hi, n_live), = seen
+    assert lo == 0 and hi == n_live - 1 == int(lab.unique().numel()) - 1
 
 
 def _ws_two_basins():

@@ -1,0 +1,592 @@
+"""WSI inference: whole slides -> per-slide instance dictionaries
+(``dat/<name>.dat``), tissue-class maps (``tissue/<name>.mat``), optional
+thumbnails, masks and json.
+
+Counterpart of ``cerberus_tpu/infer/wsi.py:278-915`` in its default mode
+for on-device post-processing, the resident one. Per slide, with
+wall-clock spans in the per-slide log:
+
+  * placement: the tissue mask (``--msk_dir`` PNG, ``--auto_mask``, or all
+    ones), the patch grid filtered by it, and mid-slide resume from the
+    disk canvas when ``progress.json`` carries the same fingerprint;
+  * inference with the set-0 nuclei instances: ``ResidentWSIProcessor``
+    (``infer/resident_wsi.py``);
+  * nuclei boundary repair: sets 1-3 of the post-processing grid, and the
+    set-0 tiles the resident loop deferred, re-read from the disk canvas;
+  * the tissue-class map (Patch-Class at 0.25x, gated by the mask);
+  * gland and lumen per tissue region at 0.5x: host reads on a prefetch
+    thread, the family and the id compaction on the device
+    (``resident_wsi.region_labels``), the families' ``post_process`` past the
+    uint16 limit;
+  * the ``.dat`` payload, a plain pickle (``joblib.load`` reads it).
+
+Device work is enqueued by the calling thread only; host threads do the
+disk reads, resizes, contours and dedup. The device half of each step
+(``boundary_tile_labels``, ``region_instance_map``'s device part) needs
+neither cv2 nor PyYAML; the host half imports cv2 inside its functions.
+
+Not ported here (ROADMAP): the legacy host-canvas loop and the CPU
+post-processing backend, ``CERBERUS_RESIDENT`` and the mesh branch, the
+multi-host slide sharding, the region-program warmer (torch compiles
+nothing), the TIFF/SVS/MIRAX/OpenSlide/JPEG 2000 readers.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import pathlib
+import pickle
+import threading
+import time
+import uuid
+from concurrent.futures import ThreadPoolExecutor
+from datetime import datetime
+
+import numpy as np
+import torch
+
+from ..data.patching import make_channel_index_map
+from ..ops.cc_cpu import label as cc_label
+from ..ops.device_postproc import KERNELS, Impl
+from ..ops.gpu_postproc import GPU_POSTPROC_FUNC_DICT, pad_to_512
+from ..ops.postproc import get_inst_info_dict
+from ..utils import mkdir, rm_n_mkdir, save_json
+from ..utils.geometry import get_bounding_box
+from ..wsi.coords import (
+    assign_patches_to_tiles,
+    filter_coordinates,
+    get_coordinates,
+    get_tile_info,
+)
+from ..wsi.dedup import select_ref_removals, select_tile_removals
+from ..wsi.ioconfig import make_inference_ioconfig, make_postproc_ioconfig
+from ..wsi.merge import CanvasSet
+from ..wsi.reader import open_wsi
+from . import resident_wsi
+from .manager import InferManager as BaseInferManager
+
+POSTPROC_BACKENDS = ("gpu", "tpu")  # "tpu" is accepted as an alias
+
+
+def _info_to_wsi_format(inst_info_dict, offset_xy):
+    """Info dicts -> the WSI .dat contract: flat XY boxes [x0, y0, x1, y1],
+    coordinates offset to slide space, uuid keys."""
+    out = {}
+    for _inst_id, info in inst_info_dict.items():
+        box = info["box"]
+        flat_box = np.array([box[0][1], box[0][0], box[1][1], box[1][0]])
+        new_info = {
+            "box": flat_box + np.concatenate([offset_xy] * 2),
+            "centroid": np.asarray(info["centroid"]) + offset_xy,
+            "contour": np.asarray(info["contour"]) + offset_xy,
+        }
+        if "type" in info:
+            new_info["type"] = info["type"]
+            new_info["type_prob"] = info["type_prob"]
+        out[uuid.uuid4().hex] = new_info
+    return out
+
+
+def _read_region_resized(canvas, bounds, channels, ds: float, mask=None,
+                         interp=None):
+    """Stripe-read a canvas region and downscale it (cv2), in row stripes
+    whose heights are multiples of 1/ds, so the stripes' resizes
+    concatenate to exactly the whole-plane resize while peak memory stays
+    O(stripe + output)."""
+    import cv2
+
+    x0, y0, x1, y1 = [int(v) for v in bounds]
+    src_h, src_w = y1 - y0, x1 - x0
+    out_w = int(round(src_w * ds))
+    out_h = int(round(src_h * ds))
+    inv = max(1, int(round(1.0 / ds)))
+    step = 4096 - (4096 % inv)
+    interp = cv2.INTER_LINEAR if interp is None else interp
+
+    jobs = []
+    done = 0
+    for sy in range(0, src_h, step):
+        ey = min(sy + step, src_h)
+        oh = (out_h - done) if ey == src_h else int((ey - sy) * ds)
+        if oh <= 0:
+            continue
+        jobs.append((sy, ey, oh))
+        done += oh
+
+    def one(job):
+        sy, ey, oh = job
+        stripe = canvas.read_region((x0, y0 + sy, x1, y0 + ey),
+                                    channels=channels)
+        if mask is not None:
+            stripe = stripe * mask[sy:ey]
+        stripe = cv2.resize(stripe, (out_w, oh), interpolation=interp)
+        if stripe.ndim == 2:
+            stripe = stripe[..., None]
+        return stripe
+
+    if len(jobs) <= 1:
+        parts = [one(j) for j in jobs]
+    else:
+        with ThreadPoolExecutor(max_workers=min(6, len(jobs))) as pool:
+            parts = list(pool.map(one, jobs))
+    return np.concatenate(parts, axis=0)
+
+
+def _plan_tissue_regions(wsi_mask):
+    """Label the tissue mask; returns ``(labelled_mask, tissue_info_list)``
+    with per-region ``[rmin, rmax, cmin, cmax]`` boxes at mask
+    resolution."""
+    wsi_mask_lab, n_regions = cc_label(wsi_mask)
+    tissue_info_list = []
+    if n_regions >= 1:
+        for region_id in range(1, n_regions + 1):
+            rmin, rmax, cmin, cmax = get_bounding_box(
+                wsi_mask_lab == region_id)
+            tissue_info_list.append([rmin, rmax, cmin, cmax])
+    else:
+        tissue_info_list.append([0, wsi_mask_lab.shape[0],
+                                 0, wsi_mask_lab.shape[1]])
+    return wsi_mask_lab, tissue_info_list
+
+
+def boundary_tile_labels(raw, tile_bounds, inst_slice, type_slice,
+                         postproc_code, device, impl: Impl = KERNELS):
+    """The device half of a nuclei boundary-repair (or deferred grid)
+    tile: its f16 canvas window read from the disk memmap ``raw``,
+    512-padded, through the family's ``post_process`` on ``device``.
+    Returns (float64 inst_map, f32 type_map or None) cropped to the
+    clipped window."""
+    x0, y0, x1, y1 = [int(v) for v in tile_bounds]
+    x1 = min(x1, raw.shape[1])
+    y1 = min(y1, raw.shape[0])
+    region = np.asarray(raw[y0:y1, x0:x1], dtype=np.float16)
+    n_inst = inst_slice[1] - inst_slice[0]
+    parts = [region[..., inst_slice[0]:inst_slice[1]]]
+    idx_dict = {"Nuclei-INST": [0, n_inst]}
+    if type_slice is not None:
+        parts.append(region[..., type_slice[0]:type_slice[1]])
+        idx_dict["Nuclei-TYPE"] = [n_inst,
+                                   n_inst + type_slice[1] - type_slice[0]]
+    raw_map = np.concatenate(parts, axis=-1)
+    h, w = raw_map.shape[:2]
+    raw_map = torch.from_numpy(pad_to_512(raw_map)).to(device)
+    inst_map, type_map = GPU_POSTPROC_FUNC_DICT[postproc_code].post_process(
+        raw_map, idx_dict, "Nuclei", impl=impl)
+    return inst_map[:h, :w], (type_map[:h, :w] if type_map is not None
+                              else None)
+
+
+def tile_instances(inst_map, type_map, tile_bounds, tile_flag, tile_mode,
+                   ref_boxes, ref_uids, margin):
+    """The host half of a nuclei post-processing tile: instance dicts
+    (cv2 contours), the tile-kind dedup, slide-space uuid entries. Returns
+    (new_inst_dict, remove_uuid_list)."""
+    inst_dict = get_inst_info_dict(inst_map, type_map)
+    if len(inst_dict) == 0:
+        return {}, []
+    x0, y0 = int(tile_bounds[0]), int(tile_bounds[1])
+    h, w = inst_map.shape[:2]
+    boxes = np.array([
+        [v["box"][0][1], v["box"][0][0], v["box"][1][1], v["box"][1][0]]
+        for v in inst_dict.values()])
+    drop = select_tile_removals(boxes, (w, h), margin, tile_flag, tile_mode)
+    kept = {k: inst_dict[k] for k, d in zip(inst_dict.keys(), drop) if not d}
+    new_inst_dict = _info_to_wsi_format(kept, np.array([x0, y0]))
+
+    remove_uuid_list = []
+    if tile_mode == 3 and len(ref_boxes) > 0:
+        ref_drop = select_ref_removals(np.asarray(ref_boxes), tile_bounds,
+                                       margin)
+        remove_uuid_list = [u for u, d in zip(ref_uids, ref_drop) if d]
+    return new_inst_dict, remove_uuid_list
+
+
+def region_instance_map(region: np.ndarray, new_idx, tissue_code, code,
+                        ds: float, device):
+    """Gland or lumen instances of one tissue region plane (rh, rw, C) f32
+    at scale ``ds``: the INST channels go up 512-padded, the family and the
+    id compaction run on the device, uint16 ids come down. Past
+    ``resident_wsi._U16_LIMIT`` ids the family's ``post_process`` (host
+    compaction to float64 ids) runs instead. Returns (inst_map, type_map
+    or None)."""
+    rh, rw = region.shape[:2]
+    n_dev_ch = 2 if code.startswith("IP-ERODED-CONTOUR") else 1
+    padded = torch.from_numpy(pad_to_512(np.ascontiguousarray(
+        region[..., :n_dev_ch]))).to(device)
+    inst16, count = resident_wsi.region_labels(padded, tissue_code, code, ds)
+    if int(count) <= resident_wsi._U16_LIMIT:
+        inst_map = inst16[:rh, :rw].cpu().numpy()
+        type_key = f"{tissue_code}-TYPE"
+        type_map = (np.squeeze(region[..., new_idx[type_key][0]:
+                                      new_idx[type_key][1]])
+                    if type_key in new_idx else None)
+        return inst_map, type_map
+    inst_map, type_map = GPU_POSTPROC_FUNC_DICT[code].post_process(
+        torch.from_numpy(pad_to_512(region)).to(device), new_idx,
+        tissue_code, ds)
+    return inst_map[:rh, :rw], (type_map[:rh, :rw] if type_map is not None
+                                else None)
+
+
+class InferManager(BaseInferManager):
+    """WSI-mode inference on the card (``device="cpu"`` for the tests)."""
+
+    def _parse_args(self, run_args):
+        for variable, value in run_args.items():
+            setattr(self, variable, value)
+
+    # ------------------------------------------------------------------
+    def _tissue_mask(self, reader, mask_path, wsi_proc_shape, resolution):
+        if mask_path is not None and os.path.isfile(mask_path):
+            import cv2
+
+            wsi_mask = cv2.imread(mask_path)
+            wsi_mask = cv2.cvtColor(wsi_mask, cv2.COLOR_BGR2GRAY)
+            wsi_mask[wsi_mask > 0] = 1
+            return wsi_mask
+        if getattr(self, "auto_mask", False):
+            from ..ops.tissue_mask import get_tissue_mask
+
+            # downsample at most 8x, keeping the thumbnail's short side
+            # >= ~512 px: the cleanup's fixed 2000 px area thresholds wipe
+            # out all tissue on tiny thumbnails
+            ds = min(8.0, max(1.0, min(wsi_proc_shape) / 512.0))
+            thumb_mpp = max(ds * reader.info.mpp,
+                            float(resolution["resolution"]) * ds)
+            thumb = reader.slide_thumbnail(resolution=thumb_mpp, units="mpp")
+            return get_tissue_mask(thumb).astype(np.uint8)
+        return np.ones(tuple(wsi_proc_shape), dtype=np.uint8)
+
+    def process_single_file(self, ioconfig, ioconfig_pp, wsi_path, mask_path,
+                            wsi_basename, output_dir):
+        logger = self.logger
+
+        start = time.perf_counter()
+        resolution = ioconfig.highest_input_resolution
+        reader = open_wsi(wsi_path)
+        wsi_proc_shape_xy = reader.slide_dimensions(**resolution)  # (w, h)
+        wsi_proc_shape = wsi_proc_shape_xy[::-1]  # YX
+        wsi_base_mpp = reader.info.mpp
+        wsi_base_shape = np.array(reader.info.slide_dimensions)[::-1]  # YX
+
+        wsi_mask = self._tissue_mask(reader, mask_path, wsi_proc_shape,
+                                     resolution)
+        mask_downsample_ratio = wsi_mask.shape[0] / wsi_proc_shape[0]
+
+        if getattr(self, "save_mask", False):
+            import cv2
+
+            cv2.imwrite(f"{output_dir}/mask/{wsi_basename}.png", wsi_mask * 255)
+        if getattr(self, "save_thumb", False):
+            import cv2
+
+            try:
+                thumb = reader.slide_thumbnail(resolution=1.25, units="power")
+            except ValueError:
+                thumb = reader.slide_thumbnail(resolution=8 * reader.info.mpp,
+                                               units="mpp")
+            cv2.imwrite(f"{output_dir}/thumb/{wsi_basename}.png",
+                        cv2.cvtColor(thumb, cv2.COLOR_RGB2BGR))
+
+        idx_dict, n_ch = make_channel_index_map(self.cfg.active_decoder_kwargs)
+
+        # mid-slide resume: the disk canvas + a tile-progress marker let a
+        # preempted job continue this slide; done_tiles index the
+        # post-processing grid, so that grid, the patch geometry and the
+        # mask are in the fingerprint (the 1 marks the resident loop, as in
+        # the JAX package's marker)
+        progress_path = os.path.join(self.cache_path, "progress.json")
+        grid_fp = [int(ioconfig.tile_shape[0]),
+                   int(ioconfig.patch_input_shape[0]),
+                   int(ioconfig.patch_output_shape[0]),
+                   int(ioconfig.margin), 1, int(ioconfig_pp.tile_shape[0])]
+        mask_fp = [list(map(int, wsi_mask.shape)), int(wsi_mask.sum())]
+        done_tiles = set()
+        resume = False
+        if os.path.exists(progress_path):
+            try:
+                with open(progress_path) as handle:
+                    meta = json.load(handle)
+            except (OSError, ValueError):
+                meta = {}
+            if (meta.get("slide") == wsi_basename
+                    and meta.get("shape") == list(map(int, wsi_proc_shape))
+                    and meta.get("n_ch") == n_ch
+                    and meta.get("grid") == grid_fp
+                    and meta.get("mask") == mask_fp):
+                done_tiles = set(meta.get("done_tiles", []))
+                resume = True
+        if not resume:
+            rm_n_mkdir(self.cache_path)
+        canvas = CanvasSet(self.cache_path, tuple(wsi_proc_shape), n_ch,
+                           resume=resume)
+
+        # the canvas-landing thread saves progress while the main thread
+        # marks empty tiles: serialise the tmp+replace
+        progress_lock = threading.Lock()
+
+        def save_progress():
+            with progress_lock:
+                with open(progress_path + ".tmp", "w") as handle:
+                    json.dump({"slide": wsi_basename,
+                               "shape": list(map(int, wsi_proc_shape)),
+                               "n_ch": n_ch,
+                               "grid": grid_fp,
+                               "mask": mask_fp,
+                               "done_tiles": sorted(done_tiles)}, handle)
+                os.replace(progress_path + ".tmp", progress_path)
+
+        patch_inputs, patch_outputs = get_coordinates(wsi_proc_shape_xy,
+                                                      ioconfig)
+        sel = filter_coordinates(wsi_mask, patch_outputs, wsi_proc_shape_xy)
+        patch_inputs = patch_inputs[sel]
+        patch_outputs = patch_outputs[sel]
+        logger.info("Preparing Input Output Placement: %.4f"
+                    % (time.perf_counter() - start))
+
+        # ===== inference + set-0 nuclei (resident loop) ==================
+        start = time.perf_counter()
+        pp_sets = get_tile_info(wsi_proc_shape_xy, ioconfig_pp)
+        nuclei_inst_info = {}
+        info_lock = threading.Lock()
+        margin = int(ioconfig_pp.margin)
+
+        def grid_tile(inst_map, type_map, bounds, flags, _tile_idx):
+            new_dict, _ = tile_instances(inst_map, type_map, bounds, flags,
+                                         0, [], [], margin)
+            with info_lock:
+                nuclei_inst_info.update(new_dict)
+
+        proc = resident_wsi.ResidentWSIProcessor(
+            self, idx_dict, n_ch,
+            postproc_code=self.decoder_dict.get("Nuclei-INST"),
+            output_shape=int(self.patch_output_shape))
+        with torch.profiler.record_function("wsi/inference"):
+            deferred = proc.run(
+                reader, resolution, patch_inputs, patch_outputs, pp_sets[0],
+                wsi_mask, wsi_proc_shape_xy, done_tiles, save_progress,
+                canvas, grid_tile)
+        logger.info("Resident grid tiles: %d deferred to the disk canvas"
+                    % len(deferred))
+        logger.info("Inference Time: %.4f" % (time.perf_counter() - start))
+
+        # ===== nuclei boundary repair (sets 1-3, deferred set 0) =========
+        start = time.perf_counter()
+        if "Nuclei-INST" in idx_dict:
+            postproc_code = self.decoder_dict["Nuclei-INST"]
+            deferred = set(deferred)
+            with ThreadPoolExecutor(max_workers=3) as host_pool, \
+                    torch.profiler.record_function("wsi/nuclei_sets"):
+                for set_idx, (pp_bounds, pp_flags) in enumerate(pp_sets):
+                    futures = []
+                    for tile_idx, tile_bounds in enumerate(pp_bounds):
+                        if set_idx == 0 and tile_idx not in deferred:
+                            continue  # already post-processed on the card
+                        if len(assign_patches_to_tiles(
+                                patch_outputs, tile_bounds)) == 0 and \
+                           not filter_coordinates(
+                               wsi_mask, tile_bounds[None],
+                               wsi_proc_shape_xy)[0]:
+                            continue
+                        ref_uids = (list(nuclei_inst_info.keys())
+                                    if set_idx == 3 else [])
+                        ref_boxes = (np.array([nuclei_inst_info[u]["box"]
+                                               for u in ref_uids])
+                                     if ref_uids else np.zeros((0, 4)))
+                        inst_map, type_map = boundary_tile_labels(
+                            canvas.raw, tile_bounds, idx_dict["Nuclei-INST"],
+                            idx_dict.get("Nuclei-TYPE"), postproc_code,
+                            self.device)
+                        futures.append(host_pool.submit(
+                            tile_instances, inst_map, type_map, tile_bounds,
+                            pp_flags[tile_idx], set_idx, ref_boxes, ref_uids,
+                            margin))
+                    for fut in futures:
+                        new_dict, remove_uuids = fut.result()
+                        nuclei_inst_info.update(new_dict)
+                        for u in remove_uuids:
+                            nuclei_inst_info.pop(u, None)
+        wsi_inst_info = {"Nuclei": nuclei_inst_info}
+        logger.info("Nuclei Post Proc Time: %.4f"
+                    % (time.perf_counter() - start))
+
+        # ===== tissue-class map ==========================================
+        start = time.perf_counter()
+        if "Patch-Class" in idx_dict:
+            import cv2
+            import scipy.io as sio
+
+            H, W = int(wsi_proc_shape[0]), int(wsi_proc_shape[1])
+            if H % 4 == 0 and W % 4 == 0:
+                pclass = canvas.read_decimated(4, idx_dict["Patch-Class"][0])
+            else:
+                pclass = _read_region_resized(
+                    canvas, (0, 0, W, H), [idx_dict["Patch-Class"][0]], 0.25,
+                    interp=cv2.INTER_NEAREST)[..., 0]
+            lores_mask = cv2.resize(wsi_mask,
+                                    (pclass.shape[1], pclass.shape[0]),
+                                    interpolation=cv2.INTER_NEAREST)
+            pclass *= lores_mask
+            sio.savemat("%s/tissue/%s.mat" % (output_dir, wsi_basename),
+                        {"pclass": pclass})
+        logger.info("Tissue Region Post Proc Time: %.4f"
+                    % (time.perf_counter() - start))
+
+        # ===== gland + lumen per tissue region ===========================
+        start = time.perf_counter()
+        wsi_mask_lab, tissue_info_list = _plan_tissue_regions(wsi_mask)
+        gland_inst_info = {}
+        lumen_inst_info = {}
+        target_list = [t for t in ("Gland", "Lumen")
+                       if f"{t}-INST" in idx_dict]
+        ds = 0.5
+
+        def region_channels(tissue_code):
+            chans = list(range(*idx_dict[f"{tissue_code}-INST"]))
+            new_idx = {f"{tissue_code}-INST": [0, len(chans)]}
+            if f"{tissue_code}-TYPE" in idx_dict:
+                t0 = len(chans)
+                chans += list(range(*idx_dict[f"{tissue_code}-TYPE"]))
+                new_idx[f"{tissue_code}-TYPE"] = [t0, len(chans)]
+            return chans, new_idx
+
+        def prep_region(region_idx, tissue_info):
+            """Host side of one tissue region (prefetch thread): the mask
+            crop and the 0.5x masked channel reads of every target."""
+            import cv2
+
+            rmin = int(round(tissue_info[0] / mask_downsample_ratio))
+            rmax = int(round(tissue_info[1] / mask_downsample_ratio))
+            cmin = int(round(tissue_info[2] / mask_downsample_ratio))
+            cmax = int(round(tissue_info[3] / mask_downsample_ratio))
+            rmax = min(rmax, int(wsi_proc_shape[0]))
+            cmax = min(cmax, int(wsi_proc_shape[1]))
+            region_mask = (wsi_mask_lab[tissue_info[0]:tissue_info[1],
+                                        tissue_info[2]:tissue_info[3]]
+                           == region_idx + 1).astype("uint8")
+            region_mask = cv2.resize(region_mask, (cmax - cmin, rmax - rmin),
+                                     interpolation=cv2.INTER_NEAREST)
+            region_mask = region_mask[..., None]
+            regions = {}
+            for tissue_code in target_list:
+                chans, new_idx = region_channels(tissue_code)
+                regions[tissue_code] = (_read_region_resized(
+                    canvas, (cmin, rmin, cmax, rmax), chans, ds,
+                    mask=region_mask), new_idx)
+            return np.array([cmin, rmin]), regions
+
+        with ThreadPoolExecutor(max_workers=1) as prefetch, \
+                torch.profiler.record_function("wsi/gland_lumen"):
+            fut = (prefetch.submit(prep_region, 0, tissue_info_list[0])
+                   if tissue_info_list else None)
+            for region_idx in range(len(tissue_info_list)):
+                tissue_topleft, regions = fut.result()
+                if region_idx + 1 < len(tissue_info_list):
+                    fut = prefetch.submit(prep_region, region_idx + 1,
+                                          tissue_info_list[region_idx + 1])
+                pred_inst_map, pred_type_map = {}, {}
+                for tissue_code in target_list:
+                    region, new_idx = regions[tissue_code]
+                    pred_inst_map[tissue_code], pred_type_map[tissue_code] = \
+                        region_instance_map(
+                            region, new_idx, tissue_code,
+                            self.decoder_dict[f"{tissue_code}-INST"], ds,
+                            self.device)
+                if "Gland" in pred_inst_map and "Lumen" in pred_inst_map:
+                    binary_gland = (pred_inst_map["Gland"] > 0).astype(
+                        pred_inst_map["Lumen"].dtype)
+                    pred_inst_map["Lumen"] = (binary_gland
+                                              * pred_inst_map["Lumen"])
+                for tissue_code in target_list:
+                    info = get_inst_info_dict(pred_inst_map[tissue_code],
+                                              pred_type_map[tissue_code], ds)
+                    wsi_info = _info_to_wsi_format(info, tissue_topleft)
+                    if tissue_code == "Gland":
+                        gland_inst_info.update(wsi_info)
+                    else:
+                        lumen_inst_info.update(wsi_info)
+        if "Gland" in target_list:
+            wsi_inst_info["Gland"] = gland_inst_info
+        if "Lumen" in target_list:
+            wsi_inst_info["Lumen"] = lumen_inst_info
+        logger.info("Gland & Lumen Post Proc Time: %.4f"
+                    % (time.perf_counter() - start))
+
+        wsi_inst_info["proc_resolution"] = {
+            "resolution": self.wsi_proc_mag, "units": "mpp"}
+        wsi_inst_info["base_resolution"] = {
+            "resolution": wsi_base_mpp, "units": "mpp"}
+        wsi_inst_info["proc_dimensions"] = np.asarray(wsi_proc_shape)
+        wsi_inst_info["base_dimensions"] = np.asarray(wsi_base_shape)
+        with open("%s/dat/%s.dat" % (output_dir, wsi_basename), "wb") as f:
+            pickle.dump(wsi_inst_info, f, protocol=pickle.HIGHEST_PROTOCOL)
+        if getattr(self, "save_json", False):
+            mkdir(f"{output_dir}/json/")
+            save_json(f"{output_dir}/json/{wsi_basename}.json",
+                      {k: v for k, v in wsi_inst_info.items()
+                       if k in ("Nuclei", "Gland", "Lumen")},
+                      mag=self.wsi_proc_mag)
+        canvas.close()
+
+    # ------------------------------------------------------------------
+    def process_wsi_list(self, run_args):
+        self._parse_args(run_args)
+        backend = getattr(self, "postproc_backend", "gpu")
+        if backend not in POSTPROC_BACKENDS:
+            raise NotImplementedError(
+                "postproc_backend=%r is not ported yet (use gpu)" % backend)
+
+        if not os.path.exists(self.cache_path):
+            rm_n_mkdir(self.cache_path)
+        mkdir(self.output_dir + "/dat/")
+        mkdir(self.output_dir + "/tissue/")
+        if getattr(self, "save_thumb", False):
+            mkdir(self.output_dir + "/thumb/")
+        if getattr(self, "save_mask", False):
+            mkdir(self.output_dir + "/mask/")
+        logging_dir = getattr(self, "logging_dir", self.output_dir)
+        mkdir(logging_dir)
+
+        n_heads = len(self.cfg.active_decoder_kwargs)
+        ioconfig = make_inference_ioconfig(
+            self.wsi_proc_mag, n_heads,
+            tile_shape=int(getattr(self, "chunk_shape", 15000)),
+            margin=int(getattr(self, "ambiguous_size", 64)),
+            patch_input=int(self.patch_input_shape),
+            patch_output=int(self.patch_output_shape))
+        ioconfig_pp = make_postproc_ioconfig(
+            self.wsi_proc_mag,
+            tile_shape=int(getattr(self, "tile_shape", 4096)),
+            margin=int(getattr(self, "ambiguous_size", 64)))
+
+        for wsi_path, mask_path in zip(self.input_list, self.mask_list):
+            wsi_basename = pathlib.Path(wsi_path).stem
+            start = time.perf_counter()
+            dt_string = datetime.now().strftime("%d-%m-%Y_%H:%M:%S")
+            log_path = f"{logging_dir}/{wsi_basename}_{dt_string}_std.log"
+            self.logger = logging.getLogger("cerberus_tpu_torch.wsi")
+            fhandler = logging.FileHandler(filename=log_path, mode="w")
+            fhandler.setFormatter(logging.Formatter(
+                "%(asctime)s - %(name)s - %(levelname)s - %(message)s"))
+            self.logger.addHandler(fhandler)
+            self.logger.setLevel(logging.DEBUG)
+            try:
+                if not os.path.exists(
+                        self.output_dir + "/dat/%s.dat" % wsi_basename):
+                    self.logger.info(f"Processing {wsi_basename} ...")
+                    with torch.profiler.record_function(
+                            f"wsi/{wsi_basename}"):
+                        self.process_single_file(
+                            ioconfig, ioconfig_pp, wsi_path, mask_path,
+                            wsi_basename, self.output_dir)
+                    self.logger.info("Overall Time: %.4f"
+                                     % (time.perf_counter() - start))
+                    self.logger.info("Finish")
+                else:
+                    self.logger.warning(
+                        f"Skip {wsi_basename} - already processed!")
+            finally:
+                self.logger.removeHandler(fhandler)
+                fhandler.close()
+        rm_n_mkdir(self.cache_path)

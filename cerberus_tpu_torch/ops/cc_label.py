@@ -79,19 +79,40 @@ def neighbor_min(lab: torch.Tensor, big: int) -> torch.Tensor:
                          torch.minimum(p[1:-1, :-2], p[1:-1, 2:]))
 
 
+def foreground_box(mask: torch.Tensor):
+    """(y0, y1, x0, x1) of the smallest box holding every True pixel of a
+    2-D mask, or None when there is none."""
+    rows = torch.nonzero(mask.any(1)).view(-1)
+    if rows.numel() == 0:
+        return None
+    cols = torch.nonzero(mask.any(0)).view(-1)
+    return (int(rows[0]), int(rows[-1]) + 1, int(cols[0]), int(cols[-1]) + 1)
+
+
 def connected_components_plain(mask: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the same contract: 4-neighbour min-label
     propagation with pointer jumping (labels are flat indices + 1, so
     ``lab <- lab[lab - 1]`` follows a label to the pixel it names), run to
-    the fixed point with one convergence test every few sweeps."""
+    the fixed point with one convergence test every few sweeps, on the box
+    around the foreground (row-major order is the same in the box and the
+    plane, so its minimum flat indices map to the plane's)."""
     if mask.dim() != 2:
         raise ValueError("mask must be 2-D, got shape %s"
                          % (tuple(mask.shape),))
     mask = mask.bool()
     h, w = mask.shape
-    n = h * w
-    if n == 0:
+    box = foreground_box(mask) if mask.numel() else None
+    if box is None:
         return torch.zeros((h, w), dtype=torch.int32, device=mask.device)
+    y0, y1, x0, x1 = box
+    if (y1 - y0, x1 - x0) != (h, w):
+        sub = connected_components_plain(mask[y0:y1, x0:x1])
+        root = (sub.long() - 1).clamp_(min=0)
+        full = (root // (x1 - x0) + y0) * w + root % (x1 - x0) + x0 + 1
+        out = torch.zeros((h, w), dtype=torch.int32, device=mask.device)
+        out[y0:y1, x0:x1] = torch.where(sub > 0, full.int(), sub)
+        return out
+    n = h * w
     big = n + 2
     idx = torch.arange(1, n + 1, dtype=torch.int32,
                        device=mask.device).view(h, w)

@@ -5,6 +5,14 @@ same channel, threshold and size contract as the CPU oracle, composed from
 ``device_postproc`` primitives so the stitched canvas stays on the card
 until it is instance label maps. Label maps are byte-equal to the JAX
 families on the same canvas.
+
+Each family class has ``labels`` (its INST channels -> device int32 label
+map, ids not compacted: what the WSI engine's grid tiles and tissue regions
+run) and ``post_process`` (labels, then the host ``np.unique`` compaction
+and the type map: the tile engine's and the WSI fallback paths' contract).
+``compact_present_ids`` is the WSI engine's on-device counterpart of that
+host compaction (``cerberus_tpu/infer/resident_wsi.py:76-105``), and
+``pad_to_512`` its shape rule (``cerberus_tpu/ops/tpu_postproc.py:42-57``).
 """
 from __future__ import annotations
 
@@ -36,7 +44,11 @@ def _nuclei_watershed(inner, cnt, impl: Impl = KERNELS):
     mrk_lab = D.remove_small_objects(D.connected_components(inner > 0.5,
                                                             impl), 4, impl)
     mrk = D.fill_holes(mrk_lab > 0, impl)
-    markers = D.connected_components(mrk, impl)
+    # compacted markers (a monotone relabel, so the watershed's min-id
+    # tie-breaks and the final compacted map are unchanged) keep the
+    # watershed's ids below the histogram's 16384 bins on a WSI tile, where
+    # compact_present_ids can then take the hist16384 kernel
+    markers, _ = D.compact_labels(D.connected_components(mrk, impl))
     return D.watershed(-inner, markers, msk, impl)
 
 
@@ -47,6 +59,43 @@ def _eroded_map_instances(fg_raw, thresh: float, min_size: int, ksize: int,
     lab = D.remove_small_objects(lab, min_size, impl)
     lab = D.dilate_labels(lab, ksize)
     return D.fill_label_holes(lab, impl)
+
+
+def pad_to_512(arr: np.ndarray) -> np.ndarray:
+    """Zero-pad H/W up to multiples of 512. The JAX package padded to
+    bound its compiles, and the padding changes results, so the port keeps
+    it: cv2-compatible erosion treats the ARRAY border as foreground, so at
+    an image's true bottom/right edge the nuclei mask differs from the
+    unpadded call's."""
+    h, w = arr.shape[:2]
+    ph, pw = -(-h // 512) * 512, -(-w // 512) * 512
+    if (ph, pw) == (h, w):
+        return arr
+    pad = [(0, ph - h), (0, pw - w)] + [(0, 0)] * (arr.ndim - 2)
+    return np.pad(arr, pad)
+
+
+def compact_present_ids(lab: torch.Tensor, impl: Impl = KERNELS):
+    """On-device ``np.unique``-style relabel: ids with no pixel are
+    dropped, the rest become 1..n in ascending-id order (a monotone map, so
+    every min/max-id convention downstream is kept). Returns (int32
+    labels, n as a 0-d int32 tensor on the device).
+
+    Below 16384 ids the per-id sizes come from the ``hist16384`` kernel
+    (told that only bins 0..max id are live); wider id planes count through
+    ``torch.bincount`` over the flat-index id space, as
+    ``remove_small_objects`` does."""
+    lab = lab.contiguous()
+    n_max = int(lab.max()) if lab.numel() else 0
+    if n_max < D.HIST_CAP:
+        sizes = impl.hist(lab, n_max + 1)
+    else:
+        sizes = torch.bincount(lab.reshape(-1).long(),
+                               minlength=lab.numel() + 1)
+    present = (sizes > 0).to(torch.int32)
+    present[0] = 0
+    rank = torch.cumsum(present, 0, dtype=torch.int32)  # rank[0] == 0
+    return rank[lab.long()], rank[-1]
 
 
 def _compact_labels(lab) -> np.ndarray:
@@ -75,14 +124,21 @@ class GPUPostProcInstErodedMap:
     _SPEC = {"GLAND": (1500, 11), "LUMEN": (150, 3), "NUCLEI": (8, 3)}
 
     @classmethod
+    def labels(cls, inst: torch.Tensor, tissue_mode, ds_factor=1.0,
+               impl: Impl = KERNELS) -> torch.Tensor:
+        """(H, W, n) INST channels on the device -> int32 labels. The
+        sizes are not scaled by ``ds_factor`` (as in the JAX family)."""
+        min_size, ksize = cls._SPEC[tissue_mode.upper()]
+        fg = inst[..., 0].float().contiguous()
+        return _eroded_map_instances(fg, 0.5, min_size, ksize, impl)
+
+    @classmethod
     def post_process(cls, raw_map: torch.Tensor, idx_dict, tissue_mode,
                      ds_factor=1.0, impl: Impl = KERNELS):
         """``raw_map``: (H, W, C) canvas tensor on the device. Returns
         (float64 inst_map, f32 type_map or None) as numpy."""
-        min_size, ksize = cls._SPEC[tissue_mode.upper()]
         s, e = idx_dict["%s-INST" % tissue_mode]
-        fg = raw_map[..., s:e].squeeze().float().contiguous()
-        lab = _eroded_map_instances(fg, 0.5, min_size, ksize, impl)
+        lab = cls.labels(raw_map[..., s:e], tissue_mode, ds_factor, impl)
         return _compact_labels(lab), _type_map(raw_map, idx_dict, tissue_mode)
 
 
@@ -93,19 +149,26 @@ class GPUPostProcInstErodedContourMap:
     }
 
     @classmethod
-    def post_process(cls, raw_map: torch.Tensor, idx_dict, tissue_mode,
-                     ds_factor=1.0, impl: Impl = KERNELS):
-        s, _e = idx_dict["%s-INST" % tissue_mode]
-        inner = raw_map[..., s].float().contiguous()
-        cnt = raw_map[..., s + 1].float().contiguous()
+    def labels(cls, inst: torch.Tensor, tissue_mode, ds_factor=1.0,
+               impl: Impl = KERNELS) -> torch.Tensor:
+        """(H, W, 2) INST channels (inner, contour) on the device -> int32
+        labels: the nuclei watershed, or the gland/lumen family with its
+        sizes scaled by ``ds_factor``."""
+        inner = inst[..., 0].float().contiguous()
+        cnt = inst[..., 1].float().contiguous()
         mode = tissue_mode.upper()
         if mode == "NUCLEI":
-            lab = _nuclei_watershed(inner, cnt, impl)
-        else:
-            thresh, base_min, base_k = cls._SPEC[mode]
-            lab = _inner_contour_instances(
-                inner, cnt, thresh, int(base_min * ds_factor ** 2),
-                int((base_k - 1) * ds_factor), impl)
+            return _nuclei_watershed(inner, cnt, impl)
+        thresh, base_min, base_k = cls._SPEC[mode]
+        return _inner_contour_instances(
+            inner, cnt, thresh, int(base_min * ds_factor ** 2),
+            int((base_k - 1) * ds_factor), impl)
+
+    @classmethod
+    def post_process(cls, raw_map: torch.Tensor, idx_dict, tissue_mode,
+                     ds_factor=1.0, impl: Impl = KERNELS):
+        s, e = idx_dict["%s-INST" % tissue_mode]
+        lab = cls.labels(raw_map[..., s:e], tissue_mode, ds_factor, impl)
         return _compact_labels(lab), _type_map(raw_map, idx_dict, tissue_mode)
 
 

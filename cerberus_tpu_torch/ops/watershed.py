@@ -16,7 +16,7 @@ import functools
 import torch
 
 from . import cuda_build
-from .cc_label import neighbor_min
+from .cc_label import foreground_box, neighbor_min
 
 N_LEVELS = 64
 SOURCE = "cerberus_tpu_torch/csrc/watershed.cu"
@@ -152,16 +152,21 @@ def watershed_plain(image: torch.Tensor, markers: torch.Tensor,
                     mask: torch.Tensor,
                     n_levels: int = N_LEVELS) -> torch.Tensor:
     """Plain PyTorch version: the level loop of ``lax_postproc.watershed``
-    with the synchronous flood run to each level's fixed point."""
+    with the synchronous flood run to each level's fixed point, on the box
+    around the mask (nothing outside it floods or is read)."""
     h, w = image.shape
     mask = mask.bool()
-    big = h * w + 2
-    image = image.float()
-    zero = torch.zeros((h, w), dtype=torch.int32, device=image.device)
-    work = torch.where(mask, markers.int(), zero)
+    out = torch.zeros((h, w), dtype=torch.int32, device=image.device)
+    box = foreground_box(mask) if mask.numel() else None
+    if box is None:
+        return out
+    y0, y1, x0, x1 = box
+    big = h * w + 2  # above every label of the whole plane
+    image = image[y0:y1, x0:x1].float()
+    mask = mask[y0:y1, x0:x1]
+    zero = torch.zeros_like(mask, dtype=torch.int32)
+    work = torch.where(mask, markers[y0:y1, x0:x1].int(), zero)
     work = torch.where(work == 0, torch.full_like(work, big), work)
-    if not bool(mask.any()):
-        return zero
     lo = image[mask].min()
     hi = image[mask].max()
     span = torch.clamp(hi - lo, min=1e-6)
@@ -169,4 +174,5 @@ def watershed_plain(image: torch.Tensor, markers: torch.Tensor,
     level = level.clamp(0, n_levels - 1)
     for lvl in range(n_levels):
         work = _flood(work, mask & (level <= lvl), big)
-    return torch.where(mask & (work != big), work, zero)
+    out[y0:y1, x0:x1] = torch.where(mask & (work != big), work, zero)
+    return out

@@ -16,7 +16,9 @@ Phases, each printing JSON lines:
      twelve rounds on a ``hist_n_live_pairs`` line; the
      watershed and its one-level ``propagate_labels`` entry on a 1000^2
      nuclei-like plane, the same plane quantised into plateaus, and a
-     1000^2 one-pixel spiral corridor flooded from both ends), with median
+     1000^2 one-pixel spiral corridor flooded from both ends) and at the
+     WSI grid tile's window (CC and both flood entries on 2560^2
+     nuclei-like planes), with median
      CUDA-event times of kernel, plain version and, for the histogram,
      ``torch.bincount``. Each kernel case times a call four ways: ``ms``
      (one call per CUDA-event pair, the host's enqueue inside the window),
@@ -44,12 +46,30 @@ Phases, each printing JSON lines:
      enclose pockets bordered by two of them, so every image takes
      ``fill_label_holes``'s contested flood (``propagate_labels``). Then the
      kernel-backed families against the plain-version families on the same
-     device canvases, byte for byte.
+     device canvases, byte for byte;
+  5. wsi: the WSI engine's device path with the same model in the WSI
+     ``InferManager`` (448->144, batch 30, bf16) on a seeded synthetic
+     3000x3500 ``.npy`` pyramid at 0.5 mpp (two levels), post-processing
+     tile 2160 (a 2x2 grid whose nuclei windows pad to 2560^2), margin 64,
+     inference tile 15000, no mask: placement, the resident loop
+     (``ResidentWSIProcessor.run``, with this script's own host callback in
+     place of the manager's contours), the nuclei boundary sets 1-3, and the
+     gland/lumen region program on the landed canvas at 0.5x (made by a
+     2x2 mean on the card: cv2's linear halving without cv2), launch counts
+     reset just before and read just after. Every grid tile's, boundary
+     tile's and region's label maps then equal the plain families' on the
+     same inputs, byte for byte. It prints patches, slide seconds, per-phase
+     seconds, launches and the largest plane each kernel was given;
+  6. wsi_cli: ``python -m cerberus_tpu_torch.run_infer_wsi --gpu=0`` (its
+     ``main``, in this process) on the same slide and model, host side
+     included, launch counts reset just before and read just after, the
+     per-phase spans read from its per-slide log.
 
 The second-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without CUDA, or without the package beside this script, it exits 1 and
-prints no result. It imports nothing of JAX, cerberus_tpu, cv2 or PyYAML.
+prints no result. It imports nothing of JAX or cerberus_tpu; cv2 and
+PyYAML are imported only by the WSI CLI's host side in phase 6.
 """
 from __future__ import annotations
 
@@ -68,6 +88,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 FWD_REL_TOL = 1e-3
+WSI_HW = (3000, 3500)  # (h, w) of the synthetic slide at 0.5 mpp
+# post-processing tile of the wsi phase: 15 x 144 px, so each grid tile's
+# nuclei window pads to 2560^2 (the CLI's 2048 floors to 2016-px tiles,
+# whose windows pad to 2048^2)
+WSI_TILE = 2160
 # synthetic INST-head bias (bg, inner, contour) per task; the kernel is
 # scaled 0.003x so the image modulates the probabilities around it
 SYNTH_INST_BIAS = {"Gland": (-2.0, -0.3, -1.5), "Lumen": (-2.0, -0.3, -1.5),
@@ -200,14 +225,17 @@ def spiral(n):
 
 
 def synthetic_image(hw, seed):
+    """Seeded noise with one flat-coloured disc per 4000 px (each drawn in
+    its bounding box, so slide-sized images stay cheap)."""
     rng = np.random.default_rng(seed)
     img = rng.integers(0, 255, (*hw, 3)).astype(np.uint8)
-    yy, xx = np.mgrid[:hw[0], :hw[1]]
     for _ in range(hw[0] * hw[1] // 4000):
         cy, cx = rng.integers(0, hw[0]), rng.integers(0, hw[1])
-        r = rng.integers(4, 40)
-        img[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = rng.integers(
-            0, 255, 3)
+        r = int(rng.integers(4, 40))
+        y0, x0 = max(cy - r, 0), max(cx - r, 0)
+        yy, xx = np.mgrid[y0:min(cy + r, hw[0]), x0:min(cx + r, hw[1])]
+        img[y0:y0 + yy.shape[0], x0:x0 + yy.shape[1]][
+            (yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = rng.integers(0, 255, 3)
     return img
 
 
@@ -280,6 +308,8 @@ def phase_kernels(torch, dev):
         ("fg1002_ring", ring_bg, 3, False),
         ("spiral1000", spiral(1000), 1, False),
         ("fg1000", blob_prob((1000, 1000), 1600, 2, 3, 12) > 0.5, 3, True),
+        # a WSI grid tile's nuclei window (2160-px tile padded to 512s)
+        ("fg2560", blob_prob((2560, 2560), 10500, 6, 3, 12) > 0.5, 1, False),
     ]
     for case, mask, plain_iters, report in cc_cases:
         mask = torch.from_numpy(mask).to(dev).contiguous()
@@ -342,6 +372,7 @@ def phase_kernels(torch, dev):
     # what the function needs: a level-bucketed wavefront flood touches each
     # pixel a constant number of times (bucket, then one neighbour minimum)
     inner = blob_prob((1000, 1000), 1600, 4, 3, 9)
+    inner2560 = blob_prob((2560, 2560), 10500, 7, 3, 9)
     spiral_mask = spiral(1000)
     ys, xs = np.nonzero(spiral_mask)
     spiral_markers = np.zeros(spiral_mask.shape, np.int32)
@@ -356,6 +387,7 @@ def phase_kernels(torch, dev):
          np.round(inner * 8) / 8, 2),
         ("spiral1000", np.zeros(spiral_mask.shape, np.float32),
          spiral_markers, spiral_mask, 1),
+        ("nuclei2560", -inner2560, None, inner2560, 1),
     ]
     for case, img_np, mk_np, prob_np, plain_iters in flood_cases:
         image = torch.from_numpy(np.ascontiguousarray(img_np, np.float32)).to(
@@ -393,15 +425,15 @@ def phase_kernels(torch, dev):
     return rows, sources
 
 
-def make_manager(torch, path, synthetic_heads: bool):
-    """A seeded random full-width ResNet-34 NetDesc written as weights.tar
-    and loaded through ``InferManager``. ``synthetic_heads``: the
-    synthetic-model recipe (INST kernels scaled 0.003x, biases
-    ``SYNTH_INST_BIAS``) so instances appear; otherwise BN statistics are
-    randomised so the forward check exercises them."""
+def write_model(torch, path, synthetic_heads: bool):
+    """A seeded random full-width ResNet-34 NetDesc written as a model
+    directory (``weights.tar`` and a ``settings.yml``, JSON being YAML).
+    ``synthetic_heads``: the synthetic-model recipe (INST kernels scaled
+    0.003x, biases ``SYNTH_INST_BIAS``) so instances appear; otherwise BN
+    statistics are randomised so the forward check exercises them. Returns
+    the model kwargs."""
     from cerberus_tpu_torch.config import (DEFAULT_DECODER_KWARGS,
                                            DEFAULT_TARGET_CODE, ModelConfig)
-    from cerberus_tpu_torch.infer.tile import InferManager
     from cerberus_tpu_torch.models.net_desc import NetDesc, init_weights
 
     model_kwargs = {"encoder_backbone_name": "resnet34",
@@ -423,14 +455,30 @@ def make_manager(torch, path, synthetic_heads: bool):
                     mod.running_var.copy_(torch.rand(
                         mod.running_var.shape, generator=gen) + 0.5)
     os.makedirs(path, exist_ok=True)
+    torch.save({"desc": model.state_dict()},
+               os.path.join(path, "weights.tar"))
+    with open(os.path.join(path, "settings.yml"), "w") as handle:
+        json.dump({"dataset_kwargs": {
+            "req_target_code": dict(DEFAULT_TARGET_CODE)},
+            "model_kwargs": model_kwargs}, handle)
+    return model_kwargs
+
+
+def make_manager(torch, path, synthetic_heads: bool, wsi: bool = False):
+    """``write_model``'s model loaded through the tile ``InferManager``
+    (batch 10), or with ``wsi`` the WSI one (batch 30, the WSI CLI's
+    default)."""
+    from cerberus_tpu_torch.config import DEFAULT_TARGET_CODE
+    from cerberus_tpu_torch.infer import tile, wsi as wsi_mod
+
     try:
-        torch.save({"desc": model.state_dict()},
-                   os.path.join(path, "weights.tar"))
-        return InferManager(
+        model_kwargs = write_model(torch, path, synthetic_heads)
+        cls = wsi_mod.InferManager if wsi else tile.InferManager
+        return cls(
             checkpoint_path=os.path.join(path, "weights.tar"),
             decoder_dict=dict(DEFAULT_TARGET_CODE), model_args=model_kwargs,
-            device="cuda", batch_size=10, patch_input_shape=448,
-            patch_output_shape=144)
+            device="cuda", batch_size=30 if wsi else 10,
+            patch_input_shape=448, patch_output_shape=144)
     finally:
         shutil.rmtree(path, ignore_errors=True)
 
@@ -538,6 +586,261 @@ def phase_main_path(torch, manager):
     return launches
 
 
+def write_slide(slide_dir):
+    """The seeded synthetic slide: a ``.npy`` pyramid directory of
+    ``WSI_HW`` at 0.5 mpp (``level_0``, ``level_1``). It has no
+    ``meta.yml``: the reader's default is 0.5 mpp."""
+    os.makedirs(slide_dir)
+    img = synthetic_image(WSI_HW, 21)
+    np.save(os.path.join(slide_dir, "level_0.npy"), img)
+    np.save(os.path.join(slide_dir, "level_1.npy"),
+            np.ascontiguousarray(img[::2, ::2]))
+
+
+def phase_wsi(torch, manager):
+    """The WSI engine's device path on a synthetic slide: placement, the
+    resident loop (inference into the row canvas, nuclei per grid tile,
+    the disk canvas landed), the boundary-repair sets 1-3 and the
+    gland/lumen region program, launch counts reset just before and read
+    just after. Then every grid tile's, boundary tile's and region's label
+    maps against the plain families on the same inputs, byte for byte."""
+    import torch.nn.functional as F
+
+    from cerberus_tpu_torch.data.patching import make_channel_index_map
+    from cerberus_tpu_torch.infer.resident_wsi import (
+        ResidentWSIProcessor, nuclei_tile_labels, region_labels)
+    from cerberus_tpu_torch.infer.wsi import boundary_tile_labels
+    from cerberus_tpu_torch.ops import cuda_build
+    from cerberus_tpu_torch.ops.device_postproc import KERNELS, PLAIN, Impl
+    from cerberus_tpu_torch.wsi.coords import (filter_coordinates,
+                                               get_coordinates, get_tile_info)
+    from cerberus_tpu_torch.wsi.ioconfig import (make_inference_ioconfig,
+                                                 make_postproc_ioconfig)
+    from cerberus_tpu_torch.wsi.merge import CanvasSet
+    from cerberus_tpu_torch.wsi.reader import open_wsi
+
+    dev = manager.device
+    work = os.path.join(cuda_build.BUILD_DIR, "smoke_wsi")
+    shutil.rmtree(work, ignore_errors=True)
+    slide_dir = os.path.join(work, "slide")
+    try:
+        write_slide(slide_dir)
+
+        # the kernels as the families call them, each noting the largest
+        # plane it was given
+        largest = {}
+
+        def noting(name, fn):
+            def call(plane, *args):
+                if plane.numel() > np.prod(largest.get(name, [0])):
+                    largest[name] = list(plane.shape)
+                return fn(plane, *args)
+            return call
+
+        impl = Impl(*(noting(name, fn) for name, fn in
+                      zip(cuda_build.LAUNCH_COUNTERS, KERNELS)))
+        nuclei_code = manager.decoder_dict["Nuclei-INST"]
+        seconds = {}
+
+        t0 = time.perf_counter()
+        n_heads = len(manager.cfg.active_decoder_kwargs)
+        ioconfig = make_inference_ioconfig(0.5, n_heads, 15000, 64, 448, 144)
+        ioconfig_pp = make_postproc_ioconfig(0.5, WSI_TILE, 64)
+        reader = open_wsi(slide_dir)
+        resolution = ioconfig.highest_input_resolution
+        shape_xy = reader.slide_dimensions(**resolution)
+        shape = tuple(int(v) for v in shape_xy[::-1])
+        wsi_mask = np.ones(shape, np.uint8)
+        patch_inputs, patch_outputs = get_coordinates(shape_xy, ioconfig)
+        sel = filter_coordinates(wsi_mask, patch_outputs, shape_xy)
+        patch_inputs, patch_outputs = patch_inputs[sel], patch_outputs[sel]
+        pp_sets = get_tile_info(shape_xy, ioconfig_pp)
+        idx_dict, n_ch = make_channel_index_map(
+            manager.cfg.active_decoder_kwargs)
+        canvas = CanvasSet(os.path.join(work, "cache"), shape, n_ch)
+        seconds["placement"] = time.perf_counter() - t0
+
+        # cuDNN plans for the batch-30 forward, outside the timed run
+        manager.run_step(torch.zeros((manager.batch_size, 448, 448, 3),
+                                     dtype=torch.uint8, device=dev), 144)
+        torch.cuda.synchronize()
+
+        grid = {}
+
+        def on_tile(inst, type_map, bounds, flags, tile_idx):
+            grid[tile_idx] = (inst, type_map)
+
+        proc = ResidentWSIProcessor(manager, idx_dict, n_ch, nuclei_code,
+                                    output_shape=144, impl=impl)
+        cuda_build.reset_launch_counts()
+        t_slide = time.perf_counter()
+        deferred = proc.run(reader, resolution, patch_inputs, patch_outputs,
+                            pp_sets[0], wsi_mask, shape_xy, set(),
+                            lambda: None, canvas, on_tile)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        seconds["inference_and_grid_tiles"] = t1 - t_slide
+
+        boundary = []
+        for set_idx in (1, 2, 3):
+            for bounds in pp_sets[set_idx][0]:
+                boundary.append((bounds, *boundary_tile_labels(
+                    canvas.raw, bounds, idx_dict["Nuclei-INST"],
+                    idx_dict.get("Nuclei-TYPE"), nuclei_code, dev, impl)))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        seconds["boundary_sets"] = t2 - t1
+
+        # the region program's input: the landed canvas at 0.5x as a 2x2
+        # mean on the card (cv2's INTER_LINEAR halving, without cv2), one
+        # region (the mask is all tissue), 512-padded
+        regions = {}
+        for task in ("Gland", "Lumen"):
+            s, e = idx_dict[f"{task}-INST"]
+            plane = torch.from_numpy(np.ascontiguousarray(
+                canvas.raw[..., s:e])).to(dev).float().permute(2, 0, 1)
+            half = F.avg_pool2d(plane[None], 2)[0]
+            h, w = half.shape[1:]
+            padded = F.pad(half, (0, -(-w // 512) * 512 - w,
+                                  0, -(-h // 512) * 512 - h))
+            padded = padded.permute(1, 2, 0).contiguous()
+            inst16, count = region_labels(
+                padded, task, manager.decoder_dict[f"{task}-INST"], 0.5,
+                impl)
+            regions[task] = (padded, inst16[:h, :w].cpu().numpy(),
+                             int(count))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        seconds["gland_lumen_regions"] = t3 - t2
+        launches = dict(cuda_build.launch_counts)
+        slide_s = t3 - t_slide + seconds["placement"]
+
+        # the same inputs through the plain families
+        windows = []
+        for tile_idx, (inst, types) in sorted(grid.items()):
+            x0, y0, x1, y1 = [int(v) for v in pp_sets[0][0][tile_idx]]
+            h, w = y1 - y0, x1 - x0
+            hp, wp = proc.padded_shape(h, w)
+            windows.append([hp, wp])
+            window = torch.zeros((hp, wp, n_ch), dtype=torch.float16,
+                                 device=dev)
+            window[:h, :w] = torch.from_numpy(np.ascontiguousarray(
+                canvas.raw[y0:y1, x0:x1])).to(dev)
+            ref, ref_types, _ = nuclei_tile_labels(window, h, w, idx_dict,
+                                                   nuclei_code, PLAIN)
+            if not (np.array_equal(inst, ref.cpu().numpy()) and
+                    np.array_equal(types, ref_types.cpu().numpy()
+                                   .astype(np.float32))):
+                raise AssertionError("WSI grid tile %d: kernel families "
+                                     "differ from plain families" % tile_idx)
+        for bounds, inst, types in boundary:
+            ref, ref_types = boundary_tile_labels(
+                canvas.raw, bounds, idx_dict["Nuclei-INST"],
+                idx_dict.get("Nuclei-TYPE"), nuclei_code, dev, PLAIN)
+            if not (np.array_equal(inst, ref)
+                    and np.array_equal(types, ref_types)):
+                raise AssertionError("WSI boundary tile %s: kernel families "
+                                     "differ from plain families"
+                                     % list(bounds))
+        for task, (padded, inst, count) in regions.items():
+            ref, ref_count = region_labels(
+                padded, task, manager.decoder_dict[f"{task}-INST"], 0.5,
+                PLAIN)
+            if not (int(ref_count) == count and np.array_equal(
+                    inst, ref[:inst.shape[0], :inst.shape[1]].cpu().numpy())):
+                raise AssertionError("WSI %s region: kernel family differs "
+                                     "from the plain family" % task)
+        plain_s = time.perf_counter() - t3
+        canvas.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    instances = {
+        "Nuclei_grid": [int(len(np.unique(i[i > 0])))
+                        for i, _ in grid.values()],
+        "Nuclei_boundary": int(sum(len(np.unique(i[i > 0]))
+                                   for _, i, _ in boundary)),
+        **{task: count for task, (_, _, count) in regions.items()}}
+    emit({"phase": "wsi", "slide_hw": list(WSI_HW), "mpp": 0.5, "levels": 2,
+          "patch": [448, 144], "batch": int(manager.batch_size),
+          "tile_shape": WSI_TILE, "ambiguous_size": 64, "chunk_shape": 15000,
+          "patches": int(len(patch_inputs)), "grid_tiles": len(grid),
+          "grid_windows": windows, "deferred": deferred,
+          "boundary_tiles": len(boundary),
+          "region_planes": {t: list(r[0].shape[:2])
+                            for t, r in regions.items()},
+          "region_input": "2x2 mean of the landed canvas on the card",
+          "instances": instances, "slide_seconds": slide_s,
+          "seconds": seconds,
+          "patches_per_s": len(patch_inputs)
+          / seconds["inference_and_grid_tiles"],
+          "launches": launches, "largest_plane": largest,
+          "families_vs_plain": "byte_equal", "plain_seconds": plain_s})
+    if deferred:
+        raise AssertionError("grid tiles deferred: %s" % deferred)
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError("kernel %s was not launched on the WSI "
+                                 "path" % name)
+    if sum(instances["Nuclei_grid"]) <= 0 or instances["Gland"] <= 0:
+        raise AssertionError("no nuclei or gland instances on the WSI path")
+    return launches
+
+
+def phase_wsi_cli(torch):
+    """``python -m cerberus_tpu_torch.run_infer_wsi`` as a user runs it
+    (its ``main``, in this process) with ``--gpu=0`` on the wsi phase's
+    slide and model, through the host side too (cv2 contours and resizes,
+    the ``.dat`` pickle, the tissue map). Launch counts are reset just
+    before and read just after; the per-phase spans come from the
+    per-slide log."""
+    import glob
+    import pickle
+    import re
+
+    from cerberus_tpu_torch import run_infer_wsi
+    from cerberus_tpu_torch.ops import cuda_build
+
+    work = os.path.join(cuda_build.BUILD_DIR, "smoke_wsi_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        write_slide(os.path.join(work, "input", "slide"))
+        write_model(torch, os.path.join(work, "model"), True)
+        argv = ["--gpu=0", "--model=%s/model" % work,
+                "--input_dir=%s/input" % work, "--output_dir=%s/out" % work,
+                "--cache_path=%s/cache/" % work, "--logging_dir=%s/log" % work,
+                "--wsi_file_ext=.npy", "--tile_shape=%d" % WSI_TILE]
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        run_infer_wsi.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(cuda_build.launch_counts)
+        with open(os.path.join(work, "out", "dat", "slide.dat"), "rb") as f:
+            dat = pickle.load(f)
+        with open(glob.glob(os.path.join(work, "log", "slide_*.log"))[0]) \
+                as f:
+            spans = {m.group(1): float(m.group(2)) for m in re.finditer(
+                r"INFO - ([^:]+): ([0-9.]+)$", f.read(), re.M)}
+        tissue = os.path.exists(os.path.join(work, "out", "tissue",
+                                             "slide.mat"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    instances = {t: len(dat.get(t, {})) for t in ("Nuclei", "Gland", "Lumen")}
+    emit({"phase": "wsi_cli", "argv": argv[:1] + argv[6:],
+          "seconds": seconds, "log_spans_s": spans, "instances": instances,
+          "proc_dimensions": [int(v) for v in dat["proc_dimensions"]],
+          "tissue_map": tissue, "launches": launches})
+    if [int(v) for v in dat["proc_dimensions"]] != list(WSI_HW) or not tissue:
+        raise AssertionError("WSI CLI outputs malformed")
+    if instances["Nuclei"] <= 0 or instances["Gland"] <= 0:
+        raise AssertionError("no nuclei or gland instances from the WSI CLI")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError("kernel %s was not launched by the WSI CLI"
+                                 % name)
+
+
 def run() -> int:
     import torch
 
@@ -563,6 +866,9 @@ def run() -> int:
     model_dir = os.path.join(cuda_build.BUILD_DIR, "smoke_model")
     phase_forward(torch, make_manager(torch, model_dir, False))
     launches = phase_main_path(torch, make_manager(torch, model_dir, True))
+    wsi_launches = phase_wsi(torch, make_manager(torch, model_dir, True,
+                                                 wsi=True))
+    phase_wsi_cli(torch)
 
     kernels = []
     for name in cuda_build.LAUNCH_COUNTERS:
@@ -570,6 +876,7 @@ def run() -> int:
         row = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
+                        "wsi_launches": wsi_launches[name],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "device_ms": row["device_ms"],
                         "device_ms_from": row["device_ms_from"],

@@ -253,3 +253,78 @@ def test_families_match_plain(dev):
             canvas, idx, tissue, impl=D.PLAIN)
         np.testing.assert_array_equal(got, ref, err_msg=tissue)
         assert got.max() > 0, tissue
+
+
+def _blob_plane(hw, n, seed, rmin=3, rmax=12):
+    """Max of n seeded cone blobs, each drawn in its own box (cheap at WSI
+    tile sizes)."""
+    rng = np.random.default_rng(seed)
+    prob = np.zeros(hw, np.float32)
+    for _ in range(n):
+        cy, cx = rng.integers(0, hw[0]), rng.integers(0, hw[1])
+        rad = rng.uniform(rmin, rmax)
+        r = int(np.ceil(rad))
+        y0, y1 = max(cy - r, 0), min(cy + r + 1, hw[0])
+        x0, x1 = max(cx - r, 0), min(cx + r + 1, hw[1])
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        cone = np.clip(1 - np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2) / rad,
+                       0, 1).astype(np.float32)
+        prob[y0:y1, x0:x1] = np.maximum(prob[y0:y1, x0:x1], cone)
+    return prob
+
+
+@pytest.mark.parametrize("max_id", [300, D.HIST_CAP - 1, 40000])
+def test_compact_present_ids_matches_plain(dev, max_id):
+    """Below 16384 ids the sizes come from one hist16384 launch; wider id
+    planes count through torch.bincount and launch nothing."""
+    rng = np.random.default_rng(max_id)
+    lab = np.where(rng.random((700, 900)) < 0.02,
+                   rng.integers(1, max_id + 1, (700, 900)), 0)
+    lab[0, 0] = max_id
+    lab = torch.from_numpy(lab.astype(np.int32))
+    cuda_build.reset_launch_counts()
+    got, n = G.compact_present_ids(lab.to(dev))
+    assert cuda_build.launch_counts["hist16384"] == int(max_id < D.HIST_CAP)
+    ref, ref_n = G.compact_present_ids(lab, D.PLAIN)
+    assert torch.equal(got.cpu(), ref) and int(n) == int(ref_n)
+    assert int(ref_n) == len(np.unique(lab.numpy())) - 1
+
+
+def test_kernels_at_the_wsi_tile_window(dev):
+    """cc_label, watershed and propagate_labels on a 2560^2 nuclei-like
+    plane: a WSI grid tile's nuclei window (2160-px tile, 512-padded)."""
+    prob = torch.from_numpy(_blob_plane((2560, 2560), 10500, 9)).to(dev)
+    fg = prob > 0.5
+    assert torch.equal(connected_components(fg),
+                       connected_components_plain(fg))
+    markers = connected_components(prob > 0.6)
+    mask = prob > 0.1
+    assert torch.equal(watershed(-prob, markers, mask),
+                       watershed_plain(-prob, markers, mask))
+    assert torch.equal(propagate_labels(markers, mask),
+                       propagate_labels_plain(markers, mask))
+
+
+def test_nuclei_tile_labels_at_the_wsi_tile_window(dev):
+    """The resident loop's per-tile nuclei program on a 2560^2 window of a
+    clipped tile (rows and columns past the valid extent zeroed): kernel
+    families equal plain families, ids compacted through hist16384."""
+    from cerberus_tpu_torch.infer.resident_wsi import nuclei_tile_labels
+
+    inner = _blob_plane((2560, 2560), 10500, 10, rmax=9)
+    cnt = _blob_plane((2560, 2560), 10500, 11, rmax=9) * 0.6
+    window = torch.zeros((2560, 2560, 3), dtype=torch.float16)
+    window[..., 0] = torch.from_numpy(inner)
+    window[..., 1] = torch.from_numpy(cnt)
+    window[..., 2] = torch.from_numpy((inner * 6).round())
+    window = window.to(dev)
+    idx = {"Nuclei-INST": [0, 2], "Nuclei-TYPE": [2, 3]}
+    code = "IP-ERODED-CONTOUR-3"
+    cuda_build.reset_launch_counts()
+    got = nuclei_tile_labels(window, 2160, 1340, idx, code)
+    assert all(cuda_build.launch_counts[k] > 0
+               for k in ("cc_label", "hist16384", "watershed"))
+    ref = nuclei_tile_labels(window, 2160, 1340, idx, code, D.PLAIN)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert got[0].shape == (2160, 1340) and int(got[2]) > 1000

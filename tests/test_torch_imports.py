@@ -1,5 +1,5 @@
 """The port stands alone: importing every module of cerberus_tpu_torch loads
-neither JAX, flax, cv2, PyYAML nor anything of cerberus_tpu; the source
+neither JAX, flax, cv2, PyYAML, joblib nor anything of cerberus_tpu; the source
 imports none of them at top level; kernel launches have no fallback; entry
 points default to the card."""
 import os
@@ -13,6 +13,7 @@ import torch
 
 import cerberus_tpu_torch
 from cerberus_tpu_torch.infer.manager import InferManager, resolve_device
+from cerberus_tpu_torch.infer.wsi import InferManager as WSIInferManager
 from cerberus_tpu_torch.ops.cc_label import connected_components
 from cerberus_tpu_torch.ops.hist16384 import hist16384
 from cerberus_tpu_torch.ops.watershed import propagate_labels, watershed
@@ -28,10 +29,14 @@ for mod in pkgutil.walk_packages(cerberus_tpu_torch.__path__,
     importlib.import_module(mod.name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "yaml",
-                                    "cerberus_tpu"))
+                                    "joblib", "cerberus_tpu"))
 print("LOADED", len([m for m in sys.modules
                      if m.startswith("cerberus_tpu_torch")]))
 print("BAD", bad)
+print("WSI", sorted(m for m in sys.modules if m.startswith(
+    ("cerberus_tpu_torch.wsi.", "cerberus_tpu_torch.infer.wsi",
+     "cerberus_tpu_torch.infer.resident_wsi", "cerberus_tpu_torch.run_infer_wsi",
+     "cerberus_tpu_torch.ops.cc_cpu", "cerberus_tpu_torch.ops.tissue_mask"))))
 """
 
 
@@ -43,6 +48,10 @@ def test_import_all_modules_loads_no_jax_cv2_yaml_or_reference():
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
     assert int(lines["LOADED"]) >= 20
     assert lines["BAD"] == "[]"
+    wsi = eval(lines["WSI"])  # the whole-slide modules are in the probe
+    assert {"cerberus_tpu_torch.infer.wsi", "cerberus_tpu_torch.run_infer_wsi",
+            "cerberus_tpu_torch.wsi.reader",
+            "cerberus_tpu_torch.ops.tissue_mask"} <= set(wsi), wsi
 
 
 def _sources():
@@ -86,3 +95,5 @@ def test_entry_points_default_to_cuda():
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         InferManager(model_args={"encoder_backbone_name": "resnet18"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WSIInferManager(model_args={"encoder_backbone_name": "resnet18"})

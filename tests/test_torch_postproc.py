@@ -129,17 +129,33 @@ def _blob_prob(hw, n, seed, rmin=3.0, rmax=12.0):
 FAMILY_SEEDS = [(0, (96, 128)), (1, (97, 131)), (2, (128, 96))]
 
 
+def _lax_nuclei_compacted_markers(inner, cnt):
+    """The JAX nuclei family with its markers compacted before the
+    watershed, as ``cerberus_tpu/infer/resident_wsi.py:182-191`` runs it
+    (and as the port's family does everywhere)."""
+    msk = L.binary_erode((inner + cnt) > 0.5, L.disk_kernel(3))
+    msk = L.remove_small_objects(L.connected_components(msk), 8) > 0
+    mrk_lab = L.remove_small_objects(L.connected_components(inner > 0.5), 4)
+    mrk = L.fill_holes(mrk_lab > 0)
+    markers, _ = L._compact_labels_jit(L.connected_components(mrk))
+    return L.watershed(-inner, markers, msk)
+
+
 @pytest.mark.parametrize("seed,hw", FAMILY_SEEDS)
 def test_nuclei_watershed_family_matches_lax(seed, hw):
     inner = _blob_prob(hw, 40, seed)
     cnt = _blob_prob(hw, 40, seed + 10) * 0.6
-    ref = np.asarray(T._nuclei_watershed(jnp.asarray(inner),
-                                         jnp.asarray(cnt), "lax"))
+    ref = np.asarray(_lax_nuclei_compacted_markers(jnp.asarray(inner),
+                                                   jnp.asarray(cnt)))
     got = G._nuclei_watershed(_t(inner), _t(cnt)).numpy()
     np.testing.assert_array_equal(got, ref)
     assert got.max() > 0
+    # the tile family's own output (uncompacted markers) after the host
+    # compaction is the same map
+    tile_ref = np.asarray(T._nuclei_watershed(jnp.asarray(inner),
+                                              jnp.asarray(cnt), "lax"))
     np.testing.assert_array_equal(G._compact_labels(got),
-                                  T._compact_labels(ref))
+                                  T._compact_labels(tile_ref))
 
 
 @pytest.mark.parametrize("seed,hw", FAMILY_SEEDS)

@@ -5,7 +5,8 @@ Counterpart of ``cerberus_tpu/infer/manager.py:43-103`` (reference
 built from ``model_args``, the ``weights.tar`` checkpoint's ``desc``
 state_dict is loaded (DataParallel ``module.`` prefixes stripped), the
 weights are placed on the device once, and one step is bound per output
-shape. Without a checkpoint the weights are random, from a seeded
+shape (valid-region decoding unless ``CERBERUS_VALID_REGION=0`` when the
+step is bound). Without a checkpoint the weights are random, from a seeded
 ``torch.Generator``.
 """
 from __future__ import annotations

@@ -7,6 +7,14 @@ of the set-0 post-processing grid (``wsi/coords.get_tile_info``):
   * the row's input pixels (the union of its patch windows) are read on a
     host thread and uploaded once as uint8; the windows are gathered on the
     card (``infer/tile.gather_windows``, exact integer indexing);
+  * a row runs every patch whose output window overlaps one of its tiles
+    (``patches_touching``), and its canvas starts at the highest of them.
+    Where the tile is a multiple of the output window that is the tiles'
+    own patches; where it is not (864 px dense windows on the 2016 px grid
+    of the default 2048 tile shape) a patch that reaches into the next row
+    is run for both rows, so each row canvas holds every pixel of its
+    tiles. (The JAX package's resident loop keeps only the patches whose
+    top-left lies in the row, and loses those pixels there.);
   * every batch the forward sees is ``batch_size`` long, its tail
     zero-padded (batch sizes are not bit-equal per sample); only the valid
     entries are written;
@@ -49,7 +57,7 @@ import torch
 
 from ..ops.device_postproc import KERNELS, Impl
 from ..ops.gpu_postproc import GPU_POSTPROC_FUNC_DICT, compact_present_ids
-from ..wsi.coords import assign_patches_to_tiles, filter_coordinates
+from ..wsi.coords import filter_coordinates
 from .tile import gather_windows
 
 _U16_LIMIT = 65535
@@ -108,6 +116,21 @@ def region_labels(region: torch.Tensor, tissue_code: str, postproc_code: str,
                                                        ds, impl)
     lab_k, count = compact_present_ids(lab, impl)
     return lab_k.to(torch.uint16), count
+
+
+def patches_touching(patch_outputs: np.ndarray,
+                     bounds: np.ndarray) -> np.ndarray:
+    """Indices of the patches whose output window overlaps the tile. Where
+    the tile is a multiple of the output window these are the patches whose
+    top-left lies in it (``wsi/coords.assign_patches_to_tiles``); where it
+    is not, as for 864 px dense windows on the 2016 px grid of the default
+    tile shape, a patch reaches into the next tile too and is run for
+    both."""
+    x0, y0, x1, y1 = [int(v) for v in bounds]
+    return np.flatnonzero((patch_outputs[:, 0] < x1)
+                          & (patch_outputs[:, 2] > x0)
+                          & (patch_outputs[:, 1] < y1)
+                          & (patch_outputs[:, 3] > y0))
 
 
 def _write_outputs(canvas: torch.Tensor, outs: torch.Tensor,
@@ -181,14 +204,16 @@ class ResidentWSIProcessor:
         # tile ROW (one input region, one row canvas and one stream of full
         # batches per row)
         work = []
+        tissue = None  # the tissue test sums the whole mask: once, if asked
         for tile_idx, bounds in enumerate(set_bounds):
             if tile_idx in done_tiles:
                 deferred.append(tile_idx)  # canvas already on disk
                 continue
-            sel = assign_patches_to_tiles(patch_outputs, bounds)
-            has_tissue = bool(filter_coordinates(
-                wsi_mask, np.asarray(bounds)[None], wsi_proc_shape_xy)[0])
-            if len(sel) == 0 and not has_tissue:
+            sel = patches_touching(patch_outputs, bounds)
+            if len(sel) == 0 and tissue is None:
+                tissue = filter_coordinates(wsi_mask, np.asarray(set_bounds),
+                                            wsi_proc_shape_xy)
+            if len(sel) == 0 and not tissue[tile_idx]:
                 done_tiles.add(tile_idx)
                 save_progress()
                 continue
@@ -209,13 +234,27 @@ class ResidentWSIProcessor:
         w_row = max([aw_slide] + [int(b[0]) + self._padded(b[2] - b[0])
                                   for b in set_bounds])
 
-        def read_row_input(y0, align_h):
-            rb = (-m_in, y0 - m_in, aw_slide + m_in, y0 + align_h + m_in)
-            return np.ascontiguousarray(reader.read_bounds(rb, **resolution))
-
         def row_geom(key):
+            """The row's patches (each once, in tile order), the canvas
+            origin ``y_top`` and its patch-aligned height. Where the tile
+            is no multiple of the output window, patches of the row above
+            reach into this row: the canvas starts at the highest of them,
+            ``key - y_top`` rows above the tiles."""
+            sel_row = np.concatenate([it[2] for it in rows[key]])
+            sel_row = sel_row[np.sort(np.unique(sel_row,
+                                                return_index=True)[1])]
             y1 = max(int(it[1][3]) for it in rows[key])
-            return y1 - key, -(-(y1 - key) // self.out) * self.out
+            y_top, y_bot = key, y1
+            if len(sel_row):
+                y_top = min(key, int(patch_outputs[sel_row, 1].min()))
+                y_bot = max(y1, int(patch_outputs[sel_row, 3].max()))
+            align_h = -(-(y_bot - y_top) // self.out) * self.out
+            return sel_row, y_top, align_h, y1 - key
+
+        def read_row_input(y_top, align_h):
+            rb = (-m_in, y_top - m_in, aw_slide + m_in,
+                  y_top + align_h + m_in)
+            return np.ascontiguousarray(reader.read_bounds(rb, **resolution))
 
         batch_size = max(int(self.manager.batch_size), 1)
         read_pool = ThreadPoolExecutor(max_workers=1)   # row input reads
@@ -224,16 +263,18 @@ class ResidentWSIProcessor:
         host_futs: List = []
         row_land_futs: List[List] = []
         try:
+            geoms = {key: row_geom(key) for key in row_keys}
             if row_keys:
-                rfut = read_pool.submit(read_row_input, row_keys[0],
-                                        row_geom(row_keys[0])[1])
+                rfut = read_pool.submit(read_row_input,
+                                        *geoms[row_keys[0]][1:3])
             for ri, key in enumerate(row_keys):
                 tiles = rows[key]
                 region = rfut.result()
                 if ri + 1 < len(row_keys):
-                    rfut = read_pool.submit(read_row_input, row_keys[ri + 1],
-                                            row_geom(row_keys[ri + 1])[1])
-                h_row, align_h = row_geom(key)
+                    rfut = read_pool.submit(read_row_input,
+                                            *geoms[row_keys[ri + 1]][1:3])
+                sel_row, y_top, align_h, h_row = geoms[key]
+                off = key - y_top
                 hp = self._padded(h_row)
 
                 # backpressure: at most two rows' downloads in flight
@@ -241,15 +282,14 @@ class ResidentWSIProcessor:
                     for fut in row_land_futs.pop(0):
                         fut.result()
 
-                dev = torch.zeros((hp, w_row, self.n_ch), dtype=torch.float16,
-                                  device=device)
+                dev = torch.zeros((max(off + hp, align_h), w_row, self.n_ch),
+                                  dtype=torch.float16, device=device)
                 inp = torch.from_numpy(region).to(device)
                 # output-window top-lefts in canvas coordinates equal
                 # input-window top-lefts in input-region coordinates (both
-                # origins sit m_in before the row corner)
-                sel_row = np.concatenate([it[2] for it in tiles])
+                # origins sit m_in before the row's top-left)
                 row_out = patch_outputs[sel_row]
-                tls_all = np.stack([row_out[:, 1] - key, row_out[:, 0]],
+                tls_all = np.stack([row_out[:, 1] - y_top, row_out[:, 0]],
                                    axis=1)
                 for start in range(0, len(tls_all), batch_size):
                     tls = tls_all[start:start + batch_size]
@@ -267,7 +307,7 @@ class ResidentWSIProcessor:
                     h_clip, w_clip = y1 - y0, x1 - x0
                     if run_nuclei and len(sel) > 0:
                         wp = self._padded(w_clip)
-                        window = dev[:, x0:x0 + wp]
+                        window = dev[off:off + hp, x0:x0 + wp]
                         if window.shape[:2] != (hp, wp):
                             raise AssertionError(
                                 "tile window %s out of the row canvas %s"
@@ -279,7 +319,7 @@ class ResidentWSIProcessor:
                             finish_tile, *hosts, event, bounds,
                             set_flags[tile_idx], tile_idx))
                     (window,), event = _to_host(
-                        dev[:h_clip, x0:x0 + w_clip])
+                        dev[off:off + h_clip, x0:x0 + w_clip])
                     futs.append(land_pool.submit(land_canvas, window, event,
                                                  bounds, tile_idx))
                 row_land_futs.append(futs)

@@ -378,17 +378,23 @@ class InferManager(BaseInferManager):
             deferred = set(deferred)
             with ThreadPoolExecutor(max_workers=3) as host_pool, \
                     torch.profiler.record_function("wsi/nuclei_sets"):
+                # the tissue test sums the whole mask: once, for every tile
+                # of every set, when a tile without a patch top-left asks
+                all_bounds = np.concatenate([b for b, _ in pp_sets])
+                first = np.cumsum([0] + [len(b) for b, _ in pp_sets])
+                tissue = None
                 for set_idx, (pp_bounds, pp_flags) in enumerate(pp_sets):
                     futures = []
                     for tile_idx, tile_bounds in enumerate(pp_bounds):
                         if set_idx == 0 and tile_idx not in deferred:
                             continue  # already post-processed on the card
                         if len(assign_patches_to_tiles(
-                                patch_outputs, tile_bounds)) == 0 and \
-                           not filter_coordinates(
-                               wsi_mask, tile_bounds[None],
-                               wsi_proc_shape_xy)[0]:
-                            continue
+                                patch_outputs, tile_bounds)) == 0:
+                            if tissue is None:
+                                tissue = filter_coordinates(
+                                    wsi_mask, all_bounds, wsi_proc_shape_xy)
+                            if not tissue[first[set_idx] + tile_idx]:
+                                continue
                         ref_uids = (list(nuclei_inst_info.keys())
                                     if set_idx == 3 else [])
                         ref_boxes = (np.array([nuclei_inst_info[u]["box"]

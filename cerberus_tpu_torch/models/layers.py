@@ -5,6 +5,12 @@ Counterpart of ``cerberus_tpu/models/layers.py:28-133``: convolutions pad
 ``BN_EPS``, ``MaxPool2d(3, 2, 1)``, bilinear 2x upsampling with half-pixel
 centres (``F.interpolate(..., align_corners=False)``, the same function as
 the JAX separable formulation) and a floor-offset centre crop.
+
+``ConvBNReLU.forward_valid`` / ``ConvBlock.forward_valid`` apply the same
+modules with padding 0 (the counterpart of
+``cerberus_tpu/models/valid_decode.py:94-99``): the interior values of the
+padded convolution, on the module's own weights, so one ``state_dict``
+drives both the full-tower and the valid-region path.
 """
 from __future__ import annotations
 
@@ -56,6 +62,10 @@ class ConvBNReLU(nn.Module):
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
 
+    def forward_valid(self, x):
+        """The same layer with padding 0: each side shrinks by ``k // 2``."""
+        return F.relu(self.bn(F.conv2d(x, self.conv.weight, self.conv.bias)))
+
 
 class ConvBlock(nn.Module):
     """Sequence of conv+BN+ReLU layers (reference conv_layers.py:63-103)."""
@@ -71,4 +81,9 @@ class ConvBlock(nn.Module):
     def forward(self, x):
         for layer in self.block:
             x = layer(x)
+        return x
+
+    def forward_valid(self, x):
+        for layer in self.block:
+            x = layer.forward_valid(x)
         return x

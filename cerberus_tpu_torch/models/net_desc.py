@@ -9,7 +9,9 @@ only) and the reference ``models/net_desc.py``:
   * per-output head: ConvBlock(f[-5], [96], 1) + Conv(96, out, 1);
   * Patch-Class: centre-crop the pre-``conv_map`` bottom features to 9x9
     when BOTH sides differ from 9 (the reference's ``and``), global
-    average pool, BN-ReLU-Conv(512->256)-BN-ReLU-Conv(256->9);
+    average pool, BN-ReLU-Conv(512->256)-BN-ReLU-Conv(256->9); a dense
+    window's per-144^2 grid pools 9x9 cells instead
+    (``patch_class_head_grid``);
   * output keys ``"<decoder before '#'>-<head>"`` and ``"Patch-Class"``.
 
 Module names equal the reference state_dict names
@@ -56,6 +58,9 @@ class _OutputHead(nn.Module):
 
 
 class _PatchClassHead(nn.Module):
+    """The tissue classifier's MLP; pooling is ``patch_class_head`` /
+    ``patch_class_head_grid``."""
+
     def __init__(self, cin, n_classes):
         super().__init__()
         self.bn1 = batch_norm(cin)
@@ -63,12 +68,44 @@ class _PatchClassHead(nn.Module):
         self.bn2 = batch_norm(256)
         self.conv2 = conv2d(256, n_classes, 1)
 
-    def forward(self, bottom):
-        if bottom.shape[-2] != 9 and bottom.shape[-1] != 9:
-            bottom = center_crop(bottom, 9, 9)
-        x = bottom.mean(dim=(2, 3), keepdim=True)
-        x = self.conv1(F.relu(self.bn1(x)))
+    def forward(self, pooled):
+        """(N, C, h, w) pooled bottom features -> (N, n_classes, h, w)."""
+        x = self.conv1(F.relu(self.bn1(pooled)))
         return self.conv2(F.relu(self.bn2(x)))
+
+
+def patch_class_head(head: _PatchClassHead, bottom: torch.Tensor
+                     ) -> torch.Tensor:
+    """The reference head: centre-crop the bottom to 9x9 when BOTH sides
+    differ from 9, global average pool, MLP -> (N, n_classes, 1, 1)."""
+    if bottom.shape[-2] != 9 and bottom.shape[-1] != 9:
+        bottom = center_crop(bottom, 9, 9)
+    return head(bottom.mean(dim=(2, 3), keepdim=True))
+
+
+def patch_class_head_grid(head: _PatchClassHead, bottom: torch.Tensor,
+                          n_cells: int) -> torch.Tensor:
+    """Per-144^2-cell classification of a dense window (counterpart of
+    ``cerberus_tpu/models/net_desc.py:226-243``).
+
+    For input 144n + 304, the 448 window the reference would centre on
+    output cell k has bottom features [9k, 9k + 28), whose centre 9x9 crop
+    is dense bottom [9k + 9, 9k + 18): a 9x9 / stride-9 average pool over
+    ``bottom[..., 9 : 9 + 9n, 9 : 9 + 9n]`` gives every cell's pooled
+    feature. Returns (N, n_classes, n, n)."""
+    x = bottom[..., 9:9 + 9 * n_cells, 9:9 + 9 * n_cells]
+    return head(F.avg_pool2d(x, 9, 9))
+
+
+def pclass_for_cells(head: _PatchClassHead, bottom: torch.Tensor,
+                     n_cells: int) -> torch.Tensor:
+    """The grid head when ``n_cells > 1`` and the bottom plane is the
+    9n + 19 square the cell arithmetic assumes, else the reference head
+    (``cerberus_tpu/models/net_desc.py:246-254``)."""
+    expect = 9 * n_cells + 19
+    if n_cells > 1 and tuple(bottom.shape[-2:]) == (expect, expect):
+        return patch_class_head_grid(head, bottom, n_cells)
+    return patch_class_head(head, bottom)
 
 
 class NetDesc(nn.Module):
@@ -104,10 +141,18 @@ class NetDesc(nn.Module):
                                     + head_name))
             self.output_head[decoder_name] = outs
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def encode(self, x: torch.Tensor):
+        """Encoder pyramid with ``conv_map`` applied to its last level, and
+        the pre-``conv_map`` bottom features (the Patch-Class input)."""
         feats = self.backbone(x)
         bottom = feats[-1]
-        feats = feats[:-1] + [self.conv_map(bottom)]
+        return feats[:-1] + [self.conv_map(bottom)], bottom
+
+    def forward(self, x: torch.Tensor,
+                pclass_cells: int = 1) -> Dict[str, torch.Tensor]:
+        """Full towers. ``pclass_cells > 1``: the dense window's
+        Patch-Class grid (``pclass_for_cells``)."""
+        feats, bottom = self.encode(x)
         out: Dict[str, torch.Tensor] = {}
         towers = {}
         for decoder_name, head_name, key in self._heads:
@@ -119,7 +164,8 @@ class NetDesc(nn.Module):
             out[key] = self.output_head[decoder_name][head_name](
                 towers[decoder_name])
         if "Patch-Class" in self.decoder_head:
-            out["Patch-Class"] = self.decoder_head["Patch-Class"](bottom)
+            out["Patch-Class"] = pclass_for_cells(
+                self.decoder_head["Patch-Class"], bottom, pclass_cells)
         return out
 
 

@@ -20,7 +20,7 @@ Options:
   --output_dir=<path>         Path to output data directory. Will create automtically if doesn't exist. [default: output/]
   --patch_input_shape=<n>     Shape of input patch to the network- Assume square shape. [default: 448]
   --patch_output_shape=<n>    Shape of network output- Assume square shape. [default: 144]
-  --dense                     Dense inference windows (not ported yet).
+  --dense                     Dense inference: 1168->864 windows (~3x fewer FLOPs per output px at the same 152 px margin). Overrides the patch shape flags; use --batch_size=16 or less (windows are 6.8x larger)
   --postproc_backend=<str>    Instance post-processing backend: gpu (on the card; tpu is an alias). cpu is not ported yet. [default: gpu]
   --tile_backend=<str>        Tile engine: host (only host is ported). [default: host]
 
@@ -43,8 +43,6 @@ def main(argv=None, device=None) -> None:
     ``--gpu`` (the tests pass ``device="cpu"``)."""
     args = docopt(__doc__, argv=argv,
                   version="CoBi Gland Inference (cerberus-tpu-torch)")
-    if args["--dense"]:
-        raise NotImplementedError("--dense is not ported yet")
     if args["--postproc_backend"] == "cpu":
         raise NotImplementedError(
             "--postproc_backend=cpu (the scipy oracle) is not ported yet; "
@@ -61,8 +59,10 @@ def main(argv=None, device=None) -> None:
         "batch_size": int(args["--batch_size"]),
         "input_dir": args["--input_dir"],
         "output_dir": output_dir,
-        "patch_input_shape": int(args["--patch_input_shape"]),
-        "patch_output_shape": int(args["--patch_output_shape"]),
+        "patch_input_shape": 1168 if args["--dense"]
+        else int(args["--patch_input_shape"]),
+        "patch_output_shape": 864 if args["--dense"]
+        else int(args["--patch_output_shape"]),
         "patch_output_overlap": 0,
         "postproc_list": list(DEFAULT_TARGET_LIST),
         "postproc_backend": args["--postproc_backend"],

@@ -16,7 +16,7 @@ Phases, each printing JSON lines:
      twelve rounds on a ``hist_n_live_pairs`` line; the
      watershed and its one-level ``propagate_labels`` entry on a 1000^2
      nuclei-like plane, the same plane quantised into plateaus, and a
-     1000^2 one-pixel spiral corridor flooded from both ends) and at the
+     768^2 one-pixel spiral corridor flooded from both ends) and at the
      WSI grid tile's window (CC and both flood entries on 2560^2
      nuclei-like planes), with median
      CUDA-event times of kernel, plain version and, for the histogram,
@@ -34,19 +34,32 @@ Phases, each printing JSON lines:
      the entry's last call, read back from its device counters;
   3. forward: a full-width ResNet-34 NetDesc with seeded random weights and
      randomised BN statistics, written as ``weights.tar`` and loaded through
-     ``InferManager``; the card's f32 forward (TF32 off) against the port's
-     CPU forward on a batch of 2 at 448^2, 1e-3 relative per head;
+     ``InferManager``; on a batch of 2 at 448->144 in f32 (TF32 off) the
+     card's full towers and valid-region heads against the port's CPU
+     forward (1e-3 relative per head), and the valid-region heads against
+     the full towers' centre crop on the card (1e-4); the same check for
+     densenet121, mobilenet_v2 and unet_encoder NetDescs at 224->72;
   4. main path: the same seeded model with the synthetic-model recipe
      (INST heads scaled 0.003x, bias [-2, 2, -1.5] for Nuclei and
      [-2, -0.3, -1.5] for Gland and Lumen, default BN statistics), loaded
      the same way, through ``InferManager.process_image`` on three
      synthetic images (600^2, 1000^2, 1000^2) at 448->144, batch 10, bf16,
-     with launch counts reset just before and read just after. The Gland
+     valid-region decoding (the default), with launch counts reset just
+     before and read just after. The Gland
      bias splits the gland plane into separate instances whose dilations
      enclose pockets bordered by two of them, so every image takes
      ``fill_label_holes``'s contested flood (``propagate_labels``). Then the
      kernel-backed families against the plain-version families on the same
-     device canvases, byte for byte;
+     device canvases, byte for byte; the same images through a manager
+     bound under ``CERBERUS_VALID_REGION=0`` (full towers,
+     ``main_path_full_towers``), and the two forwards' bf16 canvases and
+     label maps side by side (``valid_vs_full_bf16``, printed only);
+     ``main_path_dense``: the same images at 1168->864 (``--dense``), batch
+     16, with output megapixels per second for both geometries, the
+     families against the plain families and the Patch-Class grid checked;
+     ``forward_profile``: ``torch.profiler`` over one batch of each forward
+     (windowed full towers, windowed valid-region, dense valid-region), the
+     top device operations and the achieved TFLOP/s;
   5. wsi: the WSI engine's device path with the same model in the WSI
      ``InferManager`` (448->144, batch 30, bf16) on a seeded synthetic
      3000x3500 ``.npy`` pyramid at 0.5 mpp (two levels), post-processing
@@ -63,7 +76,8 @@ Phases, each printing JSON lines:
   6. wsi_cli: ``python -m cerberus_tpu_torch.run_infer_wsi --gpu=0`` (its
      ``main``, in this process) on the same slide and model, host side
      included, launch counts reset just before and read just after, the
-     per-phase spans read from its per-slide log.
+     per-phase spans read from its per-slide log; ``wsi_cli_dense``: the
+     same with ``--dense --batch_size=16``.
 
 The second-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -88,6 +102,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 FWD_REL_TOL = 1e-3
+VALID_REL_TOL = 1e-4   # valid-region vs full towers on the card, f32
+NEW_ENCODERS = ("densenet121", "mobilenet_v2", "unet_encoder")
+DENSE = (1168, 864, 16)  # the CLIs' --dense windows, batch 16
 WSI_HW = (3000, 3500)  # (h, w) of the synthetic slide at 0.5 mpp
 # post-processing tile of the wsi phase: 15 x 144 px, so each grid tile's
 # nuclei window pads to 2560^2 (the CLI's 2048 floors to 2016-px tiles,
@@ -373,11 +390,13 @@ def phase_kernels(torch, dev):
     # pixel a constant number of times (bucket, then one neighbour minimum)
     inner = blob_prob((1000, 1000), 1600, 4, 3, 9)
     inner2560 = blob_prob((2560, 2560), 10500, 7, 3, 9)
-    spiral_mask = spiral(1000)
+    # 768^2, not 1000^2: the plain floods of a 1000^2 corridor took 94 s of
+    # a 191 s run of this script (NVIDIA H100 80GB HBM3, 700 W)
+    spiral_mask = spiral(768)
     ys, xs = np.nonzero(spiral_mask)
     spiral_markers = np.zeros(spiral_mask.shape, np.int32)
     spiral_markers[0, 0] = 7  # the corridor's outer end
-    ring = np.abs(ys - 500) + np.abs(xs - 500)
+    ring = np.abs(ys - 384) + np.abs(xs - 384)
     spiral_markers[ys[ring.argmin()], xs[ring.argmin()]] = 3  # near the centre
     # case, image, markers (None: the cores of the probability plane), mask
     # (or that probability plane), runs of the plain version
@@ -385,7 +404,7 @@ def phase_kernels(torch, dev):
         ("nuclei1000", -inner, None, inner, 2),
         ("plateau1000", -np.round(inner * 8) / 8, None,
          np.round(inner * 8) / 8, 2),
-        ("spiral1000", np.zeros(spiral_mask.shape, np.float32),
+        ("spiral768", np.zeros(spiral_mask.shape, np.float32),
          spiral_markers, spiral_mask, 1),
         ("nuclei2560", -inner2560, None, inner2560, 1),
     ]
@@ -425,18 +444,13 @@ def phase_kernels(torch, dev):
     return rows, sources
 
 
-def write_model(torch, path, synthetic_heads: bool):
-    """A seeded random full-width ResNet-34 NetDesc written as a model
-    directory (``weights.tar`` and a ``settings.yml``, JSON being YAML).
-    ``synthetic_heads``: the synthetic-model recipe (INST kernels scaled
-    0.003x, biases ``SYNTH_INST_BIAS``) so instances appear; otherwise BN
-    statistics are randomised so the forward check exercises them. Returns
-    the model kwargs."""
-    from cerberus_tpu_torch.config import (DEFAULT_DECODER_KWARGS,
-                                           DEFAULT_TARGET_CODE, ModelConfig)
+def random_model(torch, backbone: str, synthetic_heads: bool):
+    """A seeded random full-width NetDesc (the six heads) on the CPU; see
+    ``write_model``."""
+    from cerberus_tpu_torch.config import DEFAULT_DECODER_KWARGS, ModelConfig
     from cerberus_tpu_torch.models.net_desc import NetDesc, init_weights
 
-    model_kwargs = {"encoder_backbone_name": "resnet34",
+    model_kwargs = {"encoder_backbone_name": backbone,
                     "decoder_kwargs": DEFAULT_DECODER_KWARGS,
                     "considered_tasks": list(DEFAULT_DECODER_KWARGS)}
     gen = torch.Generator().manual_seed(0)
@@ -454,6 +468,19 @@ def write_model(torch, path, synthetic_heads: bool):
                         mod.running_mean.shape, generator=gen) * 0.1)
                     mod.running_var.copy_(torch.rand(
                         mod.running_var.shape, generator=gen) + 0.5)
+    return model.eval(), model_kwargs
+
+
+def write_model(torch, path, synthetic_heads: bool):
+    """A seeded random full-width ResNet-34 NetDesc written as a model
+    directory (``weights.tar`` and a ``settings.yml``, JSON being YAML).
+    ``synthetic_heads``: the synthetic-model recipe (INST kernels scaled
+    0.003x, biases ``SYNTH_INST_BIAS``) so instances appear; otherwise BN
+    statistics are randomised so the forward check exercises them. Returns
+    the model kwargs."""
+    from cerberus_tpu_torch.config import DEFAULT_TARGET_CODE
+
+    model, model_kwargs = random_model(torch, "resnet34", synthetic_heads)
     os.makedirs(path, exist_ok=True)
     torch.save({"desc": model.state_dict()},
                os.path.join(path, "weights.tar"))
@@ -464,10 +491,13 @@ def write_model(torch, path, synthetic_heads: bool):
     return model_kwargs
 
 
-def make_manager(torch, path, synthetic_heads: bool, wsi: bool = False):
+def make_manager(torch, path, synthetic_heads: bool, wsi: bool = False,
+                 geometry=(448, 144, 10)):
     """``write_model``'s model loaded through the tile ``InferManager``
-    (batch 10), or with ``wsi`` the WSI one (batch 30, the WSI CLI's
-    default)."""
+    (``geometry``: input, output, batch; 448->144 at batch 10 by default),
+    or with ``wsi`` the WSI one (batch 30, the WSI CLI's default). The
+    step is bound at the first call, so ``CERBERUS_VALID_REGION`` is read
+    then."""
     from cerberus_tpu_torch.config import DEFAULT_TARGET_CODE
     from cerberus_tpu_torch.infer import tile, wsi as wsi_mod
 
@@ -477,52 +507,90 @@ def make_manager(torch, path, synthetic_heads: bool, wsi: bool = False):
         return cls(
             checkpoint_path=os.path.join(path, "weights.tar"),
             decoder_dict=dict(DEFAULT_TARGET_CODE), model_args=model_kwargs,
-            device="cuda", batch_size=30 if wsi else 10,
-            patch_input_shape=448, patch_output_shape=144)
+            device="cuda", batch_size=30 if wsi else geometry[2],
+            patch_input_shape=geometry[0], patch_output_shape=geometry[1])
     finally:
         shutil.rmtree(path, ignore_errors=True)
 
 
-def phase_forward(torch, manager):
-    """The card's f32 forward vs the port's CPU forward, 448^2, batch 2."""
+def rel_err(got, ref) -> float:
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def forward_check(torch, model, hw: int, out: int, batch: int = 2) -> dict:
+    """One f32 batch (TF32 off) through ``model`` on the card, full towers
+    and valid-region, and its copy on the CPU (full towers): per head, the
+    valid-region heads against the full towers' centre crop on the card
+    (``VALID_REL_TOL``) and both against the CPU (``FWD_REL_TOL``)."""
     import copy
 
-    from cerberus_tpu_torch.models.net_desc import net_forward
+    from cerberus_tpu_torch.models.layers import center_crop
+    from cerberus_tpu_torch.models.valid_decode import (
+        supports_valid_region, valid_head_outputs)
 
-    imgs = torch.from_numpy(np.random.default_rng(5).integers(
-        0, 256, (2, 448, 448, 3)).astype(np.uint8))
+    x = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (batch, hw, hw, 3)).astype(np.uint8)).permute(
+            0, 3, 1, 2).float() / 255.0
+    plan = supports_valid_region(model.cfg, hw, out)
+    if plan is None:
+        raise AssertionError("no valid-region plan for %d->%d" % (hw, out))
+    dev = next(model.parameters()).device
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         with torch.no_grad():
-            gpu = net_forward(manager.model, imgs.to(manager.device))
-            cpu_model = copy.deepcopy(manager.model).cpu()
-            cpu = net_forward(cpu_model, imgs)
+            full = {k: v.cpu() for k, v in model(x.to(dev)).items()}
+            valid = {k: v.cpu() for k, v in valid_head_outputs(
+                model, x.to(dev), plan).items()}
+            cpu = copy.deepcopy(model).cpu()(x)
     finally:
         torch.backends.cudnn.allow_tf32 = True
-    errs = {}
+
+    def crop(t, head):
+        return t if head == "Patch-Class" else center_crop(t, out, out)
+
+    errs = {"full_vs_cpu": {}, "valid_vs_cpu": {}, "valid_vs_full": {}}
     for head, ref in cpu.items():
-        got = gpu[head].cpu()
-        if got.shape != ref.shape or not torch.isfinite(got).all():
-            raise AssertionError("forward head %s malformed" % head)
-        errs[head] = float((got - ref).abs().max()) / max(
-            1.0, float(ref.abs().max()))
-    emit({"phase": "forward", "batch": 2, "hw": 448, "rel_err": errs,
-          "tol": FWD_REL_TOL})
-    bad = {k: v for k, v in errs.items() if not v <= FWD_REL_TOL}
+        for name, got in (("full", full[head]), ("valid", valid[head])):
+            if not torch.isfinite(got).all() or got.shape != (
+                    ref.shape if name == "full" else crop(ref, head).shape):
+                raise AssertionError("forward head %s (%s) malformed"
+                                     % (head, name))
+        errs["full_vs_cpu"][head] = rel_err(full[head], ref)
+        errs["valid_vs_cpu"][head] = rel_err(valid[head], crop(ref, head))
+        errs["valid_vs_full"][head] = rel_err(valid[head],
+                                              crop(full[head], head))
+    bad = [(kind, head, err) for kind, per in errs.items()
+           for head, err in per.items()
+           if not err <= (VALID_REL_TOL if kind == "valid_vs_full"
+                          else FWD_REL_TOL)]
+    emit({"phase": "forward", "backbone": model.cfg.encoder_backbone_name,
+          "batch": batch, "hw": hw, "out": out,
+          "rel_err": errs["full_vs_cpu"], **errs, "tol": FWD_REL_TOL,
+          "valid_tol": VALID_REL_TOL})
     if bad:
         raise AssertionError("forward heads off tolerance: %s" % bad)
+    return errs
 
 
-def phase_main_path(torch, manager):
-    from cerberus_tpu_torch.data.patching import prepare_patching
-    from cerberus_tpu_torch.infer.tile import post_process_canvas
+def phase_forward(torch, manager):
+    """The card's f32 forward against the port's CPU forward and the
+    valid-region heads against the full towers: the ResNet-34 model at
+    448->144, then each other encoder at 224->72."""
+    forward_check(torch, manager.model, 448, 144)
+    for backbone in NEW_ENCODERS:
+        model, _ = random_model(torch, backbone, False)
+        forward_check(torch, model.to(manager.device), 224, 72)
+        del model
+        torch.cuda.empty_cache()
+
+
+def drive_images(torch, manager, images):
+    """``process_image`` on each image (after a warm-up image), launch
+    counts reset just before and read just after. Returns (results,
+    seconds, ms per image, launches, instances per task)."""
     from cerberus_tpu_torch.ops import cuda_build
-    from cerberus_tpu_torch.ops.device_postproc import KERNELS, PLAIN
 
-    images = [synthetic_image(hw, seed) for hw, seed in
-              (((600, 600), 11), ((1000, 1000), 12), ((1000, 1000), 13))]
-    n_tiles = sum(len(prepare_patching(img, 448, 144)[1]) for img in images)
     manager.process_image(images[0])  # warm-up: cuDNN plans, first launches
     torch.cuda.synchronize()
 
@@ -549,11 +617,6 @@ def phase_main_path(torch, manager):
                 np.isfinite(pclass).all() and 0 <= pclass.min()
                 and pclass.max() <= 8):
             raise AssertionError("patch-class map malformed")
-    emit({"phase": "main_path", "images": [list(i.shape[:2]) for i in images],
-          "batch": int(manager.batch_size), "compute": "bf16",
-          "instances": instances, "ms_per_image": per_image_ms,
-          "tiles_448": n_tiles, "tiles_per_s": n_tiles / seconds,
-          "launches": launches})
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError("kernel %s was not launched on the main path"
@@ -561,11 +624,44 @@ def phase_main_path(torch, manager):
     for task in ("Gland", "Nuclei"):
         if sum(instances.get(task, [])) <= 0:
             raise AssertionError("no %s instances on the main path" % task)
+    return results, seconds, per_image_ms, launches, instances
 
-    # host-clock split of each image's time (synchronised at each seam)
-    split = {"canvas_ms": [], "postproc_ms": [], "plain_postproc_ms": []}
+
+def path_numbers(manager, images, seconds, per_image_ms, instances,
+                 launches) -> dict:
+    """The main path's line: windows and output megapixels per second (the
+    images' own pixels, so windowed and dense compare on one unit)."""
+    from cerberus_tpu_torch.data.patching import prepare_patching
+
+    in_sz, out_sz = int(manager.patch_input_shape), int(
+        manager.patch_output_shape)
+    n_win = sum(len(prepare_patching(img, in_sz, out_sz)[1])
+                for img in images)
+    px = sum(img.shape[0] * img.shape[1] for img in images)
+    return {"images": [list(i.shape[:2]) for i in images],
+            "patch": [in_sz, out_sz], "batch": int(manager.batch_size),
+            "compute": "bf16", "instances": instances,
+            "ms_per_image": per_image_ms, "windows": n_win,
+            "windows_per_s": n_win / seconds,
+            "output_mpx_per_s": px / seconds / 1e6, "seconds": seconds,
+            "launches": launches}
+
+
+def split_times(torch, manager, images, plain: bool):
+    """Host-clock split of each image's time, synchronised at each seam:
+    ``canvas_ms`` (gather, forward, stitch) and ``postproc_ms`` (kernel
+    families); with ``plain``, the plain-version families on the same
+    canvas too, which must equal the kernel families byte for byte.
+    Returns the split and each image's (canvas, label maps)."""
+    from cerberus_tpu_torch.infer.tile import post_process_canvas
+    from cerberus_tpu_torch.ops.device_postproc import KERNELS, PLAIN
+
+    split = {"canvas_ms": [], "postproc_ms": []}
+    if plain:
+        split["plain_postproc_ms"] = []
     args = (manager.decoder_dict, manager.postproc_list,
             manager.cfg.active_decoder_kwargs)
+    outs = []
     for i, img in enumerate(images):
         t0 = time.perf_counter()
         canvas = manager.infer_canvas(img)
@@ -573,17 +669,185 @@ def phase_main_path(torch, manager):
         t1 = time.perf_counter()
         got, _, _ = post_process_canvas(canvas, *args, impl=KERNELS)
         t2 = time.perf_counter()
-        ref, _, _ = post_process_canvas(canvas, *args, impl=PLAIN)
-        t3 = time.perf_counter()
-        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
-            split[key].append(dt * 1e3)
-        for task in ref:
-            if not np.array_equal(got[task], ref[task]):
-                raise AssertionError("image %d %s: kernel families differ "
-                                     "from plain families" % (i, task))
+        split["canvas_ms"].append((t1 - t0) * 1e3)
+        split["postproc_ms"].append((t2 - t1) * 1e3)
+        if plain:
+            ref, _, _ = post_process_canvas(canvas, *args, impl=PLAIN)
+            split["plain_postproc_ms"].append((time.perf_counter() - t2)
+                                              * 1e3)
+            for task in ref:
+                if not np.array_equal(got[task], ref[task]):
+                    raise AssertionError(
+                        "image %d %s: kernel families differ from plain "
+                        "families" % (i, task))
+        outs.append((canvas, got))
+    return split, outs
+
+
+def main_path_images():
+    return [synthetic_image(hw, seed) for hw, seed in
+            (((600, 600), 11), ((1000, 1000), 12), ((1000, 1000), 13))]
+
+
+def phase_main_path(torch, manager, full_manager):
+    """The tile main path (valid-region, the default) through
+    ``process_image``, then the same images through ``full_manager``, whose
+    step was bound under ``CERBERUS_VALID_REGION=0`` (full towers); the
+    kernel families against the plain families on the valid-region
+    canvases; the bf16 canvases and label maps of the two forwards side by
+    side (printed, not asserted: cuDNN picks other algorithms for the two
+    shapes)."""
+    images = main_path_images()
+    _, seconds, per_image_ms, launches, instances = drive_images(
+        torch, manager, images)
+    line = path_numbers(manager, images, seconds, per_image_ms, instances,
+                        launches)
+    emit({"phase": "main_path", "valid_region": True, **line,
+          "tiles_448": line["windows"], "tiles_per_s": line["windows_per_s"]})
+    split, valid_outs = split_times(torch, manager, images, plain=True)
     emit({"phase": "families_vs_plain", "images": len(images),
           "byte_equal": True, **split})
+
+    old = os.environ.get("CERBERUS_VALID_REGION")
+    os.environ["CERBERUS_VALID_REGION"] = "0"
+    try:
+        _, f_seconds, f_ms, f_launches, f_instances = drive_images(
+            torch, full_manager, images)
+        f_split, full_outs = split_times(torch, full_manager, images,
+                                         plain=False)
+    finally:
+        if old is None:
+            os.environ.pop("CERBERUS_VALID_REGION")
+        else:
+            os.environ["CERBERUS_VALID_REGION"] = old
+    f_line = path_numbers(full_manager, images, f_seconds, f_ms,
+                          f_instances, f_launches)
+    emit({"phase": "main_path_full_towers", "valid_region": False, **f_line,
+          "tiles_per_s": f_line["windows_per_s"], **f_split})
+
+    from cerberus_tpu_torch.data.patching import make_channel_index_map
+
+    idx_dict, _ = make_channel_index_map(manager.cfg.active_decoder_kwargs)
+    diff = {"canvas_max_abs": [], "inst_max_abs": [],
+            "argmax_differ_share": {}, "fg_iou": {}}
+    for (canvas_v, lab_v), (canvas_f, lab_f) in zip(valid_outs, full_outs):
+        delta = (canvas_v.float() - canvas_f.float()).abs()
+        diff["canvas_max_abs"].append(float(delta.max()))
+        diff["inst_max_abs"].append(max(
+            float(delta[..., s:e].max()) for code, (s, e) in idx_dict.items()
+            if code.endswith("-INST")))
+        for code, (s, _) in idx_dict.items():
+            if not code.endswith("-INST"):  # TYPE and Patch-Class ids
+                diff["argmax_differ_share"].setdefault(code, []).append(
+                    float((delta[..., s] > 0).float().mean()))
+        for task in lab_v:
+            a, b = lab_v[task] > 0, lab_f[task] > 0
+            union = int((a | b).sum())
+            diff["fg_iou"].setdefault(task, []).append(
+                int((a & b).sum()) / union if union else 1.0)
+    emit({"phase": "valid_vs_full_bf16", **diff})
     return launches
+
+
+def phase_main_path_dense(torch, manager):
+    """The same images through the tile main path at 1168->864 (the CLIs'
+    ``--dense``), batch 16: launches, instances, output megapixels per
+    second, the kernel families against the plain families, and the
+    Patch-Class grid (a (N, 9, 6, 6) head output, classes in [0, 9),
+    constant on each 144^2 cell of the canvas)."""
+    from cerberus_tpu_torch.data.patching import make_channel_index_map
+    from cerberus_tpu_torch.infer.steps import head_outputs
+
+    images = main_path_images()
+    _, seconds, per_image_ms, launches, instances = drive_images(
+        torch, manager, images)
+    line = path_numbers(manager, images, seconds, per_image_ms, instances,
+                        launches)
+    split, outs = split_times(torch, manager, images, plain=True)
+
+    in_sz, out_sz, batch = DENSE
+    imgs = torch.from_numpy(np.stack([synthetic_image((in_sz, in_sz), 30 + i)
+                                      for i in range(batch)])).to(
+                                          manager.device)
+    x = imgs.permute(0, 3, 1, 2).float() / 255.0
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        grid = head_outputs(manager.model, x, out_sz)["Patch-Class"]
+    canvas = manager.run_step(imgs, out_sz)
+    idx_dict, _ = make_channel_index_map(manager.cfg.active_decoder_kwargs)
+    pc = canvas[..., idx_dict["Patch-Class"][0]].float()
+    n = out_sz // 144
+    cells = pc.reshape(batch, n, 144, n, 144)
+    grid_ok = (tuple(grid.shape) == (batch, 9, n, n)
+               and torch.equal(cells.amax(dim=(2, 4)), cells.amin(dim=(2, 4)))
+               and 0 <= float(pc.min()) and float(pc.max()) < 9
+               and torch.equal(pc, pc.round()))
+    classes = sorted(int(v) for v in torch.unique(pc))
+    pclass_maps_ok = all(
+        0 <= float(c[..., idx_dict["Patch-Class"][0]].min())
+        and float(c[..., idx_dict["Patch-Class"][0]].max()) < 9
+        for c, _ in outs)
+    emit({"phase": "main_path_dense", "valid_region": True, **line,
+          "families_vs_plain": "byte_equal", **split,
+          "grid_shape": list(grid.shape), "grid_classes": classes,
+          "grid_ok": bool(grid_ok and pclass_maps_ok)})
+    if not (grid_ok and pclass_maps_ok):
+        raise AssertionError("dense Patch-Class grid malformed")
+    return launches
+
+
+def phase_forward_profile(torch, managers):
+    """``torch.profiler`` over one batch of the step on each forward path
+    (windowed full towers, windowed valid-region, dense valid-region):
+    device time, the top device operations by share, and the achieved
+    TFLOP/s against the convolutions' FLOP count (``utils/flops.py``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cerberus_tpu_torch.utils.flops import forward_flops
+
+    paths = {}
+    for name, manager, valid in managers:
+        in_sz, out_sz = int(manager.patch_input_shape), int(
+            manager.patch_output_shape)
+        batch = int(manager.batch_size)
+        imgs = torch.from_numpy(np.stack([
+            synthetic_image((in_sz, in_sz), 40 + i) for i in range(batch)
+        ])).to(manager.device)
+        # each manager's step was bound on its main path, full towers or
+        # valid-region as ``valid`` says
+        wall_ms = cuda_ms(lambda: manager.run_step(imgs, out_sz), 3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            manager.run_step(imgs, out_sz)
+            torch.cuda.synchronize()
+        ops = {}
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            ops[evt.key[:90]] = ops.get(evt.key[:90], 0.0) + us
+        device_ms = sum(ops.values()) / 1e3
+        flops = forward_flops(in_sz, out_sz, valid, manager.cfg,
+                              batch)["flops"]
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
+        paths[name] = {
+            "patch": [in_sz, out_sz], "batch": batch, "valid_region": valid,
+            "wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms if wall_ms else None,
+            "gflop": flops / 1e9,
+            "tflop_per_s_device": flops / (device_ms * 1e-3) / 1e12
+            if device_ms else None,
+            "tflop_per_s_wall": flops / (wall_ms * 1e-3) / 1e12,
+            "mflop_per_output_px": flops / batch / out_sz ** 2 / 1e6,
+            "top_ops": [{"name": k, "ms": v / 1e3,
+                         "share": v / 1e3 / device_ms} for k, v in top]}
+    emit({"phase": "forward_profile", "paths": paths,
+          "peak_bf16_tflop_per_s": 989})
+    for name, row in paths.items():
+        if not row["device_ms"]:
+            raise AssertionError("profiler saw no device time for %s" % name)
 
 
 def write_slide(slide_dir):
@@ -787,13 +1051,14 @@ def phase_wsi(torch, manager):
     return launches
 
 
-def phase_wsi_cli(torch):
+def phase_wsi_cli(torch, extra_argv=(), phase="wsi_cli"):
     """``python -m cerberus_tpu_torch.run_infer_wsi`` as a user runs it
     (its ``main``, in this process) with ``--gpu=0`` on the wsi phase's
     slide and model, through the host side too (cv2 contours and resizes,
-    the ``.dat`` pickle, the tissue map). Launch counts are reset just
-    before and read just after; the per-phase spans come from the
-    per-slide log."""
+    the ``.dat`` pickle, the tissue map), with ``extra_argv`` added
+    (``--dense --batch_size=16`` for ``wsi_cli_dense``). Launch counts are
+    reset just before and read just after; the per-phase spans come from
+    the per-slide log."""
     import glob
     import pickle
     import re
@@ -809,7 +1074,8 @@ def phase_wsi_cli(torch):
         argv = ["--gpu=0", "--model=%s/model" % work,
                 "--input_dir=%s/input" % work, "--output_dir=%s/out" % work,
                 "--cache_path=%s/cache/" % work, "--logging_dir=%s/log" % work,
-                "--wsi_file_ext=.npy", "--tile_shape=%d" % WSI_TILE]
+                "--wsi_file_ext=.npy", "--tile_shape=%d" % WSI_TILE,
+                *extra_argv]
         cuda_build.reset_launch_counts()
         t0 = time.perf_counter()
         run_infer_wsi.main(argv)
@@ -822,16 +1088,24 @@ def phase_wsi_cli(torch):
                 as f:
             spans = {m.group(1): float(m.group(2)) for m in re.finditer(
                 r"INFO - ([^:]+): ([0-9.]+)$", f.read(), re.M)}
-        tissue = os.path.exists(os.path.join(work, "out", "tissue",
-                                             "slide.mat"))
+        tissue_path = os.path.join(work, "out", "tissue", "slide.mat")
+        tissue = os.path.exists(tissue_path)
+        if tissue:
+            import scipy.io as sio
+
+            pclass = sio.loadmat(tissue_path)["pclass"]
+            pclass_classes = sorted(int(v) for v in np.unique(pclass))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     instances = {t: len(dat.get(t, {})) for t in ("Nuclei", "Gland", "Lumen")}
-    emit({"phase": "wsi_cli", "argv": argv[:1] + argv[6:],
+    emit({"phase": phase, "argv": argv[:1] + argv[6:],
           "seconds": seconds, "log_spans_s": spans, "instances": instances,
           "proc_dimensions": [int(v) for v in dat["proc_dimensions"]],
-          "tissue_map": tissue, "launches": launches})
-    if [int(v) for v in dat["proc_dimensions"]] != list(WSI_HW) or not tissue:
+          "tissue_map": tissue, "pclass_classes": pclass_classes if tissue
+          else None, "launches": launches})
+    if [int(v) for v in dat["proc_dimensions"]] != list(WSI_HW) or not (
+            tissue and pclass_classes and 0 <= min(pclass_classes)
+            and max(pclass_classes) <= 8):
         raise AssertionError("WSI CLI outputs malformed")
     if instances["Nuclei"] <= 0 or instances["Gland"] <= 0:
         raise AssertionError("no nuclei or gland instances from the WSI CLI")
@@ -865,10 +1139,20 @@ def run() -> int:
 
     model_dir = os.path.join(cuda_build.BUILD_DIR, "smoke_model")
     phase_forward(torch, make_manager(torch, model_dir, False))
-    launches = phase_main_path(torch, make_manager(torch, model_dir, True))
+    manager = make_manager(torch, model_dir, True)
+    full_manager = make_manager(torch, model_dir, True)
+    launches = phase_main_path(torch, manager, full_manager)
+    dense_manager = make_manager(torch, model_dir, True, geometry=DENSE)
+    phase_main_path_dense(torch, dense_manager)
+    phase_forward_profile(torch, [("windowed_full", full_manager, False),
+                                  ("windowed_valid", manager, True),
+                                  ("dense_valid", dense_manager, True)])
+    del manager, full_manager, dense_manager
+    torch.cuda.empty_cache()
     wsi_launches = phase_wsi(torch, make_manager(torch, model_dir, True,
                                                  wsi=True))
     phase_wsi_cli(torch)
+    phase_wsi_cli(torch, ("--dense", "--batch_size=16"), "wsi_cli_dense")
 
     kernels = []
     for name in cuda_build.LAUNCH_COUNTERS:

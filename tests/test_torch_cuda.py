@@ -328,3 +328,74 @@ def test_nuclei_tile_labels_at_the_wsi_tile_window(dev):
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert got[0].shape == (2160, 1340) and int(got[2]) > 1000
+
+
+def _full_width_model(dev, seed=0):
+    """A seeded full-width ResNet-34 NetDesc (six heads) with randomised
+    BN statistics, on the card."""
+    from cerberus_tpu_torch.config import DEFAULT_DECODER_KWARGS, ModelConfig
+    from cerberus_tpu_torch.models.net_desc import NetDesc, init_weights
+
+    cfg = ModelConfig.from_kwargs({
+        "encoder_backbone_name": "resnet34",
+        "decoder_kwargs": DEFAULT_DECODER_KWARGS,
+        "considered_tasks": list(DEFAULT_DECODER_KWARGS)})
+    gen = torch.Generator().manual_seed(seed)
+    model = init_weights(NetDesc(cfg), gen)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.copy_(torch.randn(
+                    mod.running_mean.shape, generator=gen) * 0.1)
+                mod.running_var.copy_(torch.rand(
+                    mod.running_var.shape, generator=gen) + 0.5)
+    return model.to(dev).eval()
+
+
+def test_valid_region_equals_full_towers_on_card(dev):
+    """448->144, batch 2, f32 with TF32 off: valid-region heads within 1e-4
+    relative of the full towers' centre crop."""
+    from cerberus_tpu_torch.models.layers import center_crop
+    from cerberus_tpu_torch.models.valid_decode import (
+        supports_valid_region, valid_head_outputs)
+
+    model = _full_width_model(dev)
+    x = torch.rand((2, 3, 448, 448), generator=torch.Generator().manual_seed(
+        1)).to(dev)
+    plan = supports_valid_region(model.cfg, 448, 144)
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            full = model(x)
+            valid = valid_head_outputs(model, x, plan)
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    for head, got in valid.items():
+        ref = full[head] if head == "Patch-Class" else center_crop(
+            full[head], 144, 144)
+        assert got.shape == ref.shape, head
+        rel = float((got - ref).abs().max()) / max(1.0,
+                                                   float(ref.abs().max()))
+        assert rel < 1e-4, (head, rel)
+
+
+def test_dense_step_grid_on_card(dev):
+    """One bf16 1168->864 step: a (2, 864, 864, 9) f16 canvas whose
+    Patch-Class channel is constant on each of the 6x6 cells of 144^2 and
+    holds classes in [0, 9)."""
+    from cerberus_tpu_torch.data.patching import make_channel_index_map
+    from cerberus_tpu_torch.infer.steps import make_infer_step
+
+    model = _full_width_model(dev)
+    imgs = torch.randint(0, 256, (2, 1168, 1168, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(2)).to(dev)
+    out = make_infer_step(model, model.cfg, 864)(imgs)
+    assert out.shape == (2, 864, 864, 9) and out.dtype == torch.float16
+    assert torch.isfinite(out).all()
+    idx_dict, _ = make_channel_index_map(model.cfg.active_decoder_kwargs)
+    pc = out[..., idx_dict["Patch-Class"][0]].float()
+    cells = pc.reshape(2, 6, 144, 6, 144)
+    assert torch.equal(cells.amax(dim=(2, 4)), cells.amin(dim=(2, 4)))
+    assert 0 <= float(pc.min()) and float(pc.max()) < 9
+    assert torch.equal(pc, pc.round())

@@ -79,16 +79,16 @@ def _image(seed=0, hw=(150, 170)):
     return img
 
 
-def _jax_tile(params, img):
+def _jax_tile(params, img, in_shape=IN_SHAPE, out_shape=OUT_SHAPE):
     """The JAX tile path at f32: patch grid, forward, host stitch, crop,
     ``post_process_tile(backend="tpu")``. Returns (canvas, results)."""
     cfg = JaxModelConfig.from_kwargs(MODEL_KWARGS)
-    padded, info, src_pos = jax_prepare(img, IN_SHAPE, OUT_SHAPE)
-    wins = np.stack([padded[y:y + IN_SHAPE, x:x + IN_SHAPE]
+    padded, info, src_pos = jax_prepare(img, in_shape, out_shape)
+    wins = np.stack([padded[y:y + in_shape, x:x + in_shape]
                      for y, x in info[:, 0, 0]])
     with jax.default_matmul_precision("highest"):
         outs = np.asarray(fused_infer_outputs(
-            params, jnp.asarray(wins), cfg, OUT_SHAPE,
+            params, jnp.asarray(wins), cfg, out_shape,
             compute_dtype=jnp.float32, out_dtype=jnp.float32))
     canvas = jax_stitch(list(outs), info[:, 1, 0], padded.shape[:2])
     canvas = canvas[src_pos[0]:src_pos[0] + img.shape[0],
@@ -100,13 +100,13 @@ def _jax_tile(params, img):
     return canvas, results
 
 
-def _manager(model_dir):
+def _manager(model_dir, in_shape=IN_SHAPE, out_shape=OUT_SHAPE):
     d, _ = model_dir
     return InferManager(checkpoint_path=str(d / "weights.tar"),
                         decoder_dict=dict(DEFAULT_TARGET_CODE),
                         model_args=MODEL_KWARGS, device="cpu", batch_size=4,
-                        patch_input_shape=IN_SHAPE,
-                        patch_output_shape=OUT_SHAPE)
+                        patch_input_shape=in_shape,
+                        patch_output_shape=out_shape)
 
 
 @pytest.fixture(scope="module")
@@ -118,9 +118,28 @@ def both_paths(model_dir):
     return canvas, jax_results, port
 
 
+@pytest.fixture(scope="module")
+def both_paths_valid(model_dir):
+    """224->72, where valid-region decoding engages on both sides."""
+    _, params = model_dir
+    img = _image()
+    canvas, jax_results = _jax_tile(params, img, 224, 72)
+    port = _manager(model_dir, 224, 72).process_image(img)
+    return canvas, jax_results, port
+
+
 def test_process_image_agrees_with_jax_tile_path(both_paths):
+    _assert_agrees(both_paths)
+
+
+def test_process_image_valid_region_agrees_with_jax_tile_path(
+        both_paths_valid):
+    _assert_agrees(both_paths_valid)
+
+
+def _assert_agrees(paths):
     _, (_, _, ref_inst, _, ref_type, ref_pclass), (inst, types, pclass) = \
-        both_paths
+        paths
     assert set(inst) == set(ref_inst) == {"Gland", "Lumen", "Nuclei"}
     assert ref_inst["Gland"].max() > 0 and ref_inst["Nuclei"].max() > 0
     for task, ref in ref_inst.items():
@@ -174,6 +193,30 @@ def test_cli_main_writes_reference_outputs(model_dir, tmp_path):
         assert 0 <= pclass["pclass"].min() <= pclass["pclass"].max() <= 8
     with pytest.raises(AssertionError):  # skip-if-done: nothing left to do
         main(argv, device="cpu")
-    for flag in ("--postproc_backend=cpu", "--dense"):
-        with pytest.raises(NotImplementedError):
-            main(argv + [flag], device="cpu")
+    with pytest.raises(NotImplementedError):
+        main(argv + ["--postproc_backend=cpu"], device="cpu")
+
+
+def test_cli_dense_selects_1168_to_864(model_dir, tmp_path, monkeypatch):
+    """``--dense`` overrides the shape flags with 1168->864; the step is
+    stubbed (zeros), so no 1168^2 forward runs on the CPU."""
+    import cv2
+
+    d, _ = model_dir
+    input_dir, output_dir = tmp_path / "input", tmp_path / "output"
+    os.makedirs(input_dir)
+    cv2.imwrite(str(input_dir / "t.png"), _image(1, (100, 120)))
+    seen = []
+
+    def stub(self, batch, output_shape):
+        seen.append((tuple(batch.shape), output_shape))
+        return torch.zeros((batch.shape[0], output_shape, output_shape, 9))
+
+    monkeypatch.setattr(InferManager, "run_step", stub)
+    main(["--model=%s" % d, "--input_dir=%s" % input_dir,
+          "--output_dir=%s" % output_dir, "--batch_size=2",
+          "--patch_input_shape=%d" % IN_SHAPE,
+          "--patch_output_shape=%d" % OUT_SHAPE, "--dense"], device="cpu")
+    assert seen == [((2, 1168, 1168, 3), 864)]
+    mat = sio.loadmat(str(output_dir / "nuclei_mat" / "t.mat"))
+    assert mat["inst_map"].shape == (100, 120)

@@ -123,7 +123,8 @@ def _torch_stub(_self, batch, out_sz):
     return torch.from_numpy(stub_outputs(batch.cpu().numpy(), out_sz))
 
 
-def _run_args(root, tag, slide, backend):
+def _run_args(root, tag, slide, backend, geometry=(IN_SHAPE, OUT_SHAPE),
+              tile_shape=192):
     return {
         "nr_inference_workers": 2,
         "nr_post_proc_workers": 0,
@@ -131,12 +132,12 @@ def _run_args(root, tag, slide, backend):
         "input_list": [str(slide)],
         "mask_list": [None],
         "output_dir": str(root / f"out_{tag}"),
-        "patch_input_shape": IN_SHAPE,
-        "patch_output_shape": OUT_SHAPE,
+        "patch_input_shape": geometry[0],
+        "patch_output_shape": geometry[1],
         "save_thumb": False,
         "save_mask": False,
         "postproc_list": list(DEFAULT_TARGET_LIST),
-        "tile_shape": 192,
+        "tile_shape": tile_shape,
         "chunk_shape": 480,
         "ambiguous_size": 16,
         "cache_path": str(root / f"cache_{tag}"),
@@ -156,7 +157,7 @@ def _outputs(root, tag, slide):
     return dat, pclass
 
 
-def _jax_run(root, tag, slide, resident, params=None):
+def _jax_run(root, tag, slide, resident, params=None, **geometry):
     """The JAX WSI engine; ``params=None`` runs the numpy stub forward,
     otherwise the model at f32."""
     from cerberus_tpu.infer.wsi import InferManager
@@ -171,7 +172,8 @@ def _jax_run(root, tag, slide, resident, params=None):
             infer = InferManager(decoder_dict=dict(DEFAULT_TARGET_CODE),
                                  model_args=MODEL_KWARGS, params=params,
                                  compute_dtype=jnp.float32)
-        infer.process_wsi_list(_run_args(root, tag, slide, "tpu"))
+        infer.process_wsi_list(_run_args(root, tag, slide, "tpu",
+                                         **geometry))
     return _outputs(root, tag, slide)
 
 
@@ -181,11 +183,11 @@ def _port_manager(checkpoint=None):
                                  model_args=MODEL_KWARGS, device="cpu")
 
 
-def _port_run(root, tag, slide, checkpoint=None):
+def _port_run(root, tag, slide, checkpoint=None, **geometry):
     infer = _port_manager(checkpoint)
     if checkpoint is None:
         infer.run_step = _torch_stub.__get__(infer)
-    infer.process_wsi_list(_run_args(root, tag, slide, "gpu"))
+    infer.process_wsi_list(_run_args(root, tag, slide, "gpu", **geometry))
     return _outputs(root, tag, slide)
 
 
@@ -228,6 +230,86 @@ def test_stub_forward_dat_matches_both_jax_paths(jax_stub, port_stub):
     for ref in (res_pclass, leg_pclass):
         assert pclass.dtype == ref.dtype and pclass.shape == ref.shape
         assert pclass.tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("tile_shape", [576, 432])
+def test_stub_forward_dense_ratio_dat_matches_jax(slide, tmp_path,
+                                                  tile_shape):
+    """592->288 windows (the dense margin of 304 px at a CPU size) with the
+    stub forward. Tile 576 is a multiple of the output window: the port
+    equals both JAX engines. Tile 432 is not (as 2016 px tiles are for 864
+    px dense windows): patches reach into the next tile row, and the port
+    equals the JAX legacy engine, which writes every patch to the disk
+    canvas."""
+    geometry = {"geometry": (592, 288), "tile_shape": tile_shape}
+    dat, pclass = _port_run(tmp_path, "port", slide, **geometry)
+    assert all(len(dat[t]) > 0 for t in TASKS)
+    engines = [False] + ([True] if tile_shape % 288 == 0 else [])
+    for resident in engines:
+        ref_dat, ref_pclass = _jax_run(tmp_path, "jax%d" % resident, slide,
+                                       resident, **geometry)
+        assert _payload(dat) == _payload(ref_dat), resident
+        np.testing.assert_array_equal(pclass, ref_pclass)
+
+
+def test_stub_forward_masked_dat_matches_jax(slide, tmp_path, monkeypatch):
+    """A tissue mask that leaves the right and bottom of the slide empty:
+    grid tiles and boundary strips with no patch and no tissue are skipped
+    (the tissue test runs once, for the tiles that ask), and the port
+    equals both JAX engines."""
+    import cv2
+
+    mask = np.zeros((100, 126), np.uint8)
+    mask[:62, :50] = 255  # tissue in x < 200, y < 248 of the 400x504 slide
+    cv2.imwrite(str(tmp_path / "s.png"), mask)
+
+    def run(engine, tag):
+        args = _run_args(tmp_path, tag, slide, "gpu")
+        args["mask_list"] = [str(tmp_path / "s.png")]
+        engine(args)
+        return _outputs(tmp_path, tag, slide)
+
+    def port(args):
+        infer = _port_manager()
+        infer.run_step = _torch_stub.__get__(infer)
+        infer.process_wsi_list(args)
+
+    def jax_engine(resident):
+        from cerberus_tpu.infer.wsi import InferManager
+
+        def go(args):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setenv("CERBERUS_RESIDENT", "1" if resident else "0")
+                infer = InferManager(decoder_dict=dict(DEFAULT_TARGET_CODE),
+                                     model_args=MODEL_KWARGS)
+                infer.run_step = stub_outputs
+                infer.process_wsi_list(dict(args, postproc_backend="tpu"))
+        return go
+
+    calls = []
+
+    def counting(module):
+        orig = module.filter_coordinates
+
+        def call(mask, bounds, shape):
+            calls.append((module.__name__, len(bounds)))
+            return orig(mask, bounds, shape)
+        monkeypatch.setattr(module, "filter_coordinates", call)
+
+    counting(resident_wsi)
+    counting(port_wsi)
+    dat, pclass = run(port, "port")
+    # placement, one test for the grid tiles without patches, one for the
+    # boundary strips without a patch top-left (all tiles of all sets)
+    assert [name.split(".")[-1] for name, _ in calls] == [
+        "wsi", "resident_wsi", "wsi"], calls
+    assert 0 < len(dat["Nuclei"]) and all(
+        v["centroid"][0] < 260 and v["centroid"][1] < 300
+        for v in dat["Nuclei"].values())
+    for resident in (True, False):
+        ref_dat, ref_pclass = run(jax_engine(resident), "jax%d" % resident)
+        assert _payload(dat) == _payload(ref_dat), resident
+        np.testing.assert_array_equal(pclass, ref_pclass)
 
 
 def test_real_forward_counts_and_tissue_map_match_jax(tmp_path):
@@ -355,6 +437,38 @@ def test_cli_discovers_shards_writes_and_skips(tmp_path, monkeypatch):
 
     monkeypatch.setattr(port_wsi.InferManager, "process_single_file", fail)
     run_infer_wsi.main(argv, device="cpu")
-    for flag in ("--postproc_backend=cpu", "--dense"):
-        with pytest.raises(NotImplementedError):
-            run_infer_wsi.main(argv + [flag], device="cpu")
+    with pytest.raises(NotImplementedError):
+        run_infer_wsi.main(argv + ["--postproc_backend=cpu"], device="cpu")
+
+
+def test_cli_dense_selects_1168_to_864(tmp_path, monkeypatch):
+    """``--dense`` overrides the shape flags: the stub forward sees 1168^2
+    windows and returns 864^2 outputs, and the slide's ``.dat`` is
+    written."""
+    input_dir = tmp_path / "input"
+    _write_slide(input_dir / "a", 1, blocks=(18, 20))
+    model_dir = tmp_path / "model"
+    os.makedirs(model_dir)
+    torch.save({"desc": state_dict_from_jax_params(_biased_params())},
+               str(model_dir / "weights.tar"))
+    with open(model_dir / "settings.yml", "w") as f:
+        yaml.safe_dump({"dataset_kwargs":
+                        {"req_target_code": dict(DEFAULT_TARGET_CODE)},
+                        "model_kwargs": MODEL_KWARGS}, f)
+    seen = []
+
+    def stub(self, batch, out_sz):
+        seen.append((tuple(batch.shape), out_sz))
+        return _torch_stub(self, batch, out_sz)
+
+    monkeypatch.setattr(port_wsi.InferManager, "run_step", stub)
+    out = tmp_path / "out"
+    run_infer_wsi.main(
+        ["--model=%s" % model_dir, "--input_dir=%s" % input_dir,
+         "--output_dir=%s" % out, "--cache_path=%s/" % (tmp_path / "c"),
+         "--logging_dir=%s" % (tmp_path / "log"), "--wsi_file_ext=.npy",
+         "--batch_size=2", "--tile_shape=192", "--ambiguous_size=16",
+         "--dense"], device="cpu")
+    assert seen and set(seen) == {((2, 1168, 1168, 3), 864)}
+    with open(out / "dat" / "a.dat", "rb") as f:
+        assert tuple(pickle.load(f)["proc_dimensions"]) == (144, 160)

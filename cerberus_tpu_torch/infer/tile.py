@@ -10,6 +10,13 @@ Counterpart of ``cerberus_tpu/infer/tile.py:44-341``, split at one seam:
     instance post-processing on the card (``ops/gpu_postproc.py``). It
     returns ``(inst_map_dict, type_map_dict, pclass_map)`` as numpy and
     needs neither cv2 nor PyYAML.
+  * ``postproc_backend="cpu"`` (the JAX CLIs' default) takes the stitched
+    canvas to the host in one copy per image and runs the scipy/cv2 oracle
+    families there (``post_process_host``, the JAX ``post_process_tile``),
+    in this process or, with ``nr_post_proc_workers > 0``, in a pool of
+    ``spawn`` processes that receive numpy arrays only (a forked child of a
+    process that has initialised CUDA cannot use it, and the families need
+    no card).
   * The writer — ``instance_info`` (2x nearest upscale + instance dicts),
     ``.mat`` files, overlay, PNG read — is host code that imports cv2 inside
     its functions.
@@ -17,12 +24,15 @@ Counterpart of ``cerberus_tpu/infer/tile.py:44-341``, split at one seam:
 Kept reference quirks: lumen instances survive only inside glands, and
 lumen instances are typed against the gland type map (the previous task's
 upscaled type map). Each image runs its own batches; the JAX engine's
-cross-file batch cache and its native C++ patch gather are not ported.
+cross-file batch cache is not ported (the windows are gathered on the card,
+so its C++ patch gather has no use here).
 """
 from __future__ import annotations
 
+import multiprocessing
 import os
 import pathlib
+from concurrent.futures import ProcessPoolExecutor, as_completed
 
 import numpy as np
 import torch
@@ -31,12 +41,14 @@ from ..config import DEFAULT_TARGET_LIST
 from ..data.patching import make_channel_index_map, prepare_patching
 from ..ops.device_postproc import KERNELS, Impl
 from ..ops.gpu_postproc import GPU_POSTPROC_FUNC_DICT
-from ..ops.postproc import get_inst_info_dict
+from ..ops.postproc import POSTPROC_FUNC_DICT, get_inst_info_dict
 from ..ops.stitch import stitch_canvas
 from ..utils import log_info, mkdir, recur_find_ext
 from .manager import InferManager as BaseInferManager
 
-POSTPROC_BACKENDS = ("gpu", "tpu")  # "tpu" is accepted as an alias
+# "gpu": families on the card ("tpu" is accepted as an alias); "cpu": the
+# scipy/cv2 oracle families on the host
+POSTPROC_BACKENDS = ("gpu", "tpu", "cpu")
 
 
 def gather_windows(img: torch.Tensor, tl_list, size: int) -> torch.Tensor:
@@ -49,30 +61,60 @@ def gather_windows(img: torch.Tensor, tl_list, size: int) -> torch.Tensor:
     return img[ys[:, :, None], xs[:, None, :]]
 
 
-def post_process_canvas(canvas: torch.Tensor, postproc_code: dict,
-                        postproc_list, decoder_kwargs: dict,
-                        impl: Impl = KERNELS):
-    """Instance post-processing of a stitched, source-cropped (H, W, C)
-    device canvas (the device half of the JAX ``post_process_tile``).
-    Returns (inst_map_dict, type_map_dict, pclass_map) as numpy."""
+def _post_process(canvas, postproc_code: dict, postproc_list,
+                  decoder_kwargs: dict, families: dict, **kwargs):
+    """Each task's family (from ``families``) on a stitched, source-cropped
+    (H, W, C) canvas, lumen gated by the glands. Returns (inst_map_dict,
+    type_map_dict, pclass_map) as numpy."""
     idx_dict, _ = make_channel_index_map(decoder_kwargs)
     inst_maps, type_maps = {}, {}
     pclass_map = None
     for tissue_code in postproc_list:
         tissue_code = tissue_code.capitalize()
         if tissue_code + "-INST" in postproc_code:
-            proc_cls = GPU_POSTPROC_FUNC_DICT[
-                postproc_code[tissue_code + "-INST"]]
+            proc_cls = families[postproc_code[tissue_code + "-INST"]]
             inst_maps[tissue_code], type_maps[tissue_code] = \
-                proc_cls.post_process(canvas, idx_dict, tissue_code,
-                                      impl=impl)
+                proc_cls.post_process(canvas, idx_dict, tissue_code, **kwargs)
         elif tissue_code == "Patch-class" and "Patch-Class" in idx_dict:
-            pclass_map = canvas[..., idx_dict["Patch-Class"][0]].cpu().numpy()
+            pclass_map = canvas[..., idx_dict["Patch-Class"][0]]
+            if isinstance(pclass_map, torch.Tensor):
+                pclass_map = pclass_map.cpu().numpy()
     # lumen predictions only survive inside glands (reference tile.py:187-191)
     if "Lumen" in inst_maps and "Gland" in inst_maps:
         gland = (inst_maps["Gland"] > 0).astype(inst_maps["Lumen"].dtype)
         inst_maps["Lumen"] = gland * inst_maps["Lumen"]
     return inst_maps, type_maps, pclass_map
+
+
+def post_process_canvas(canvas: torch.Tensor, postproc_code: dict,
+                        postproc_list, decoder_kwargs: dict,
+                        impl: Impl = KERNELS):
+    """Instance post-processing of a stitched, source-cropped (H, W, C)
+    device canvas (the device half of the JAX ``post_process_tile``).
+    Returns (inst_map_dict, type_map_dict, pclass_map) as numpy."""
+    return _post_process(canvas, postproc_code, postproc_list,
+                         decoder_kwargs, GPU_POSTPROC_FUNC_DICT, impl=impl)
+
+
+def post_process_host(canvas: np.ndarray, postproc_code: dict,
+                      postproc_list, decoder_kwargs: dict):
+    """The ``cpu`` backend: the scipy/cv2 oracle families on a stitched,
+    source-cropped (H, W, C) numpy canvas (the JAX ``post_process_tile``
+    with ``backend="cpu"``). Returns (inst_map_dict, type_map_dict,
+    pclass_map) as ``post_process_canvas`` does."""
+    return _post_process(canvas, postproc_code, postproc_list,
+                         decoder_kwargs, POSTPROC_FUNC_DICT)
+
+
+def _host_postproc_and_info(canvas: np.ndarray, postproc_code: dict,
+                            postproc_list, decoder_kwargs: dict):
+    """Pool worker of the ``cpu`` backend: ``post_process_host`` and the
+    instance dictionaries, from and to numpy only. Returns (inst_maps,
+    inst_info, type_maps, pclass_map), ``save_results``'s order."""
+    inst_maps, type_maps, pclass_map = post_process_host(
+        canvas, postproc_code, postproc_list, decoder_kwargs)
+    return (inst_maps, instance_info(inst_maps, type_maps, postproc_list),
+            type_maps, pclass_map)
 
 
 def _upscale2x(arr: np.ndarray) -> np.ndarray:
@@ -179,8 +221,8 @@ class InferManager(BaseInferManager):
             setattr(self, variable, value)
         backend = getattr(self, "postproc_backend", "gpu")
         if backend not in POSTPROC_BACKENDS:
-            raise NotImplementedError(
-                "postproc_backend=%r is not ported yet (use gpu)" % backend)
+            raise ValueError("postproc_backend=%r: use one of %s"
+                             % (backend, POSTPROC_BACKENDS))
         if getattr(self, "tile_backend", "host") != "host":
             raise NotImplementedError("tile_backend=%r is not ported yet"
                                       % self.tile_backend)
@@ -202,11 +244,47 @@ class InferManager(BaseInferManager):
                 file_path_list.append(file_path)
         assert len(file_path_list) > 0, "Not Detected Any Files From Path"
 
-        for file_path in sorted(file_path_list):
-            img = cv2.cvtColor(cv2.imread(file_path), cv2.COLOR_BGR2RGB)
-            inst_maps, type_maps, pclass_map = self.process_image(img)
-            info = instance_info(inst_maps, type_maps, self.postproc_list)
-            name = pathlib.Path(file_path).stem
-            save_results(self.output_dir, name, img, inst_maps, info,
-                         type_maps, pclass_map, viz_info)
-            log_info("Done Assembling %s" % name)
+        pool = None
+        if backend == "cpu" and int(getattr(self, "nr_post_proc_workers", 0)
+                                    or 0) > 0:
+            pool = ProcessPoolExecutor(
+                int(self.nr_post_proc_workers),
+                mp_context=multiprocessing.get_context("spawn"))
+        try:
+            futures = {}
+            for file_path in sorted(file_path_list):
+                img = cv2.cvtColor(cv2.imread(file_path), cv2.COLOR_BGR2RGB)
+                name = pathlib.Path(file_path).stem
+                if backend != "cpu":
+                    inst_maps, type_maps, pclass_map = self.process_image(img)
+                    info = instance_info(inst_maps, type_maps,
+                                         self.postproc_list)
+                    save_results(self.output_dir, name, img, inst_maps, info,
+                                 type_maps, pclass_map, viz_info)
+                    log_info("Done Assembling %s" % name)
+                    continue
+                # one copy of the stitched canvas to the host per image
+                args = (self.infer_canvas(img).cpu().numpy(),
+                        self.decoder_dict, self.postproc_list,
+                        self.cfg.active_decoder_kwargs)
+                if pool is None:
+                    save_results(self.output_dir, name, img,
+                                 *_host_postproc_and_info(*args),
+                                 viz_info)
+                    log_info("Done Assembling %s" % name)
+                else:
+                    futures[pool.submit(_host_postproc_and_info, *args)] = \
+                        (name, img)
+            # as the JAX engine: a failed worker is logged and its image
+            # left without outputs; the others are written
+            for fut in as_completed(futures):
+                name, img = futures[fut]
+                if fut.exception() is not None:
+                    log_info("Postproc worker failed: %r" % fut.exception())
+                    continue
+                save_results(self.output_dir, name, img,
+                             *fut.result(), viz_info)
+                log_info("Done Assembling %s" % name)
+        finally:
+            if pool is not None:
+                pool.shutdown()

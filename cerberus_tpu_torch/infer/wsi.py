@@ -2,22 +2,30 @@
 (``dat/<name>.dat``), tissue-class maps (``tissue/<name>.mat``), optional
 thumbnails, masks and json.
 
-Counterpart of ``cerberus_tpu/infer/wsi.py:278-915`` in its default mode
-for on-device post-processing, the resident one. Per slide, with
+Counterpart of ``cerberus_tpu/infer/wsi.py:278-915``. Per slide, with
 wall-clock spans in the per-slide log:
 
   * placement: the tissue mask (``--msk_dir`` PNG, ``--auto_mask``, or all
     ones), the patch grid filtered by it, and mid-slide resume from the
     disk canvas when ``progress.json`` carries the same fingerprint;
-  * inference with the set-0 nuclei instances: ``ResidentWSIProcessor``
-    (``infer/resident_wsi.py``);
-  * nuclei boundary repair: sets 1-3 of the post-processing grid, and the
-    set-0 tiles the resident loop deferred, re-read from the disk canvas;
+  * inference, by one of two loops, chosen as the JAX engine chooses
+    (``gpu`` standing for its ``tpu``): the resident loop
+    (``infer/resident_wsi.py``, with the set-0 nuclei instances) for the
+    ``gpu`` backend unless ``CERBERUS_RESIDENT=0``; otherwise the legacy
+    host-canvas loop (``_run_tile_pipelined``: a read thread over the
+    reader's ``read_batch``, the forward on the card, each batch's outputs
+    landed in the disk canvas from pinned memory);
+  * nuclei post-processing over the four tile sets of the post-processing
+    grid (set 0 only for the tiles the resident loop deferred), re-read
+    from the disk canvas: the CUDA families (``gpu``) or the scipy/cv2
+    oracle families (``cpu``, in a pool of ``spawn`` processes with
+    ``nr_post_proc_workers > 0``);
   * the tissue-class map (Patch-Class at 0.25x, gated by the mask);
   * gland and lumen per tissue region at 0.5x: host reads on a prefetch
-    thread, the family and the id compaction on the device
-    (``resident_wsi.region_labels``), the families' ``post_process`` past the
-    uint16 limit;
+    thread, then the family: on the device with the id compaction in the
+    resident mode (``resident_wsi.region_labels``, the families'
+    ``post_process`` past the uint16 limit), the CUDA families'
+    ``post_process`` in the legacy loop, or the oracle families (``cpu``);
   * the ``.dat`` payload, a plain pickle (``joblib.load`` reads it).
 
 Device work is enqueued by the calling thread only; host threads do the
@@ -25,22 +33,22 @@ disk reads, resizes, contours and dedup. The device half of each step
 (``boundary_tile_labels``, ``region_instance_map``'s device part) needs
 neither cv2 nor PyYAML; the host half imports cv2 inside its functions.
 
-Not ported here (ROADMAP): the legacy host-canvas loop and the CPU
-post-processing backend, ``CERBERUS_RESIDENT`` and the mesh branch, the
-multi-host slide sharding, the region-program warmer (torch compiles
-nothing), the TIFF/SVS/MIRAX/OpenSlide/JPEG 2000 readers.
+Not ported here (ROADMAP): the mesh branch and the multi-host slide
+sharding, the region-program warmer (torch compiles nothing).
 """
 from __future__ import annotations
 
 import json
 import logging
+import multiprocessing
 import os
 import pathlib
 import pickle
+import queue
 import threading
 import time
 import uuid
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from datetime import datetime
 
 import numpy as np
@@ -50,7 +58,7 @@ from ..data.patching import make_channel_index_map
 from ..ops.cc_cpu import label as cc_label
 from ..ops.device_postproc import KERNELS, Impl
 from ..ops.gpu_postproc import GPU_POSTPROC_FUNC_DICT, pad_to_512
-from ..ops.postproc import get_inst_info_dict
+from ..ops.postproc import POSTPROC_FUNC_DICT, get_inst_info_dict
 from ..utils import mkdir, rm_n_mkdir, save_json
 from ..utils.geometry import get_bounding_box
 from ..wsi.coords import (
@@ -66,7 +74,12 @@ from ..wsi.reader import open_wsi
 from . import resident_wsi
 from .manager import InferManager as BaseInferManager
 
-POSTPROC_BACKENDS = ("gpu", "tpu")  # "tpu" is accepted as an alias
+# "gpu": families on the card ("tpu" is accepted as an alias); "cpu": the
+# scipy/cv2 oracle families on the host
+POSTPROC_BACKENDS = ("gpu", "tpu", "cpu")
+# host batches between the read thread and the card, and batch outputs
+# between the card and the canvas writer, in the legacy loop
+_LEGACY_BUFFERS = 4
 
 
 def _info_to_wsi_format(inst_info_dict, offset_xy):
@@ -150,17 +163,14 @@ def _plan_tissue_regions(wsi_mask):
     return wsi_mask_lab, tissue_info_list
 
 
-def boundary_tile_labels(raw, tile_bounds, inst_slice, type_slice,
-                         postproc_code, device, impl: Impl = KERNELS):
-    """The device half of a nuclei boundary-repair (or deferred grid)
-    tile: its f16 canvas window read from the disk memmap ``raw``,
-    512-padded, through the family's ``post_process`` on ``device``.
-    Returns (float64 inst_map, f32 type_map or None) cropped to the
-    clipped window."""
+def _tile_raw_map(raw, tile_bounds, inst_slice, type_slice, dtype):
+    """A nuclei post-processing tile's window of the disk memmap ``raw``,
+    clipped to the canvas, as ``dtype``: (INST + TYPE channels, the
+    family's idx_dict)."""
     x0, y0, x1, y1 = [int(v) for v in tile_bounds]
     x1 = min(x1, raw.shape[1])
     y1 = min(y1, raw.shape[0])
-    region = np.asarray(raw[y0:y1, x0:x1], dtype=np.float16)
+    region = np.asarray(raw[y0:y1, x0:x1], dtype=dtype)
     n_inst = inst_slice[1] - inst_slice[0]
     parts = [region[..., inst_slice[0]:inst_slice[1]]]
     idx_dict = {"Nuclei-INST": [0, n_inst]}
@@ -168,13 +178,50 @@ def boundary_tile_labels(raw, tile_bounds, inst_slice, type_slice,
         parts.append(region[..., type_slice[0]:type_slice[1]])
         idx_dict["Nuclei-TYPE"] = [n_inst,
                                    n_inst + type_slice[1] - type_slice[0]]
-    raw_map = np.concatenate(parts, axis=-1)
+    return np.concatenate(parts, axis=-1), idx_dict
+
+
+def boundary_tile_labels(raw, tile_bounds, inst_slice, type_slice,
+                         postproc_code, device, impl: Impl = KERNELS):
+    """The device half of a nuclei boundary-repair (or deferred grid)
+    tile: its f16 canvas window read from the disk memmap ``raw``,
+    512-padded, through the family's ``post_process`` on ``device``.
+    Returns (float64 inst_map, f32 type_map or None) cropped to the
+    clipped window."""
+    raw_map, idx_dict = _tile_raw_map(raw, tile_bounds, inst_slice,
+                                      type_slice, np.float16)
     h, w = raw_map.shape[:2]
     raw_map = torch.from_numpy(pad_to_512(raw_map)).to(device)
     inst_map, type_map = GPU_POSTPROC_FUNC_DICT[postproc_code].post_process(
         raw_map, idx_dict, "Nuclei", impl=impl)
     return inst_map[:h, :w], (type_map[:h, :w] if type_map is not None
                               else None)
+
+
+def host_tile_labels(raw, tile_bounds, inst_slice, type_slice,
+                     postproc_code):
+    """The ``cpu`` backend's nuclei tile: the f32 canvas window through the
+    oracle family (the JAX ``_process_tile_predictions`` with
+    ``backend="cpu"``). Returns (float64 inst_map, f32 type_map or
+    None)."""
+    raw_map, idx_dict = _tile_raw_map(raw, tile_bounds, inst_slice,
+                                      type_slice, np.float32)
+    return POSTPROC_FUNC_DICT[postproc_code].post_process(raw_map, idx_dict,
+                                                          "Nuclei")
+
+
+def host_tile_instances(raw, tile_bounds, inst_slice, type_slice,
+                        postproc_code, tile_flag, tile_mode, ref_boxes,
+                        ref_uids, margin):
+    """A whole ``cpu`` nuclei tile, the process pool's worker: ``raw`` is
+    the disk canvas memmap or its path (opened read-only here). Returns
+    ``tile_instances``'s (new_inst_dict, remove_uuid_list)."""
+    if isinstance(raw, str):
+        raw = np.load(raw, mmap_mode="r")
+    inst_map, type_map = host_tile_labels(raw, tile_bounds, inst_slice,
+                                          type_slice, postproc_code)
+    return tile_instances(inst_map, type_map, tile_bounds, tile_flag,
+                          tile_mode, ref_boxes, ref_uids, margin)
 
 
 def tile_instances(inst_map, type_map, tile_bounds, tile_flag, tile_mode,
@@ -222,6 +269,17 @@ def region_instance_map(region: np.ndarray, new_idx, tissue_code, code,
                                       new_idx[type_key][1]])
                     if type_key in new_idx else None)
         return inst_map, type_map
+    return region_post_process(region, new_idx, tissue_code, code, ds,
+                               device)
+
+
+def region_post_process(region: np.ndarray, new_idx, tissue_code, code,
+                        ds: float, device):
+    """Gland or lumen instances of one tissue region plane through the
+    family's ``post_process`` on ``device``, 512-padded (the legacy loop's
+    ``gpu`` path, and the resident path past the uint16 limit). Returns
+    (float64 inst_map, type_map or None) cropped to the region."""
+    rh, rw = region.shape[:2]
     inst_map, type_map = GPU_POSTPROC_FUNC_DICT[code].post_process(
         torch.from_numpy(pad_to_512(region)).to(device), new_idx,
         tissue_code, ds)
@@ -235,6 +293,193 @@ class InferManager(BaseInferManager):
     def _parse_args(self, run_args):
         for variable, value in run_args.items():
             setattr(self, variable, value)
+
+    # ------------------------------------------------------------------
+    def _read_patch_batches(self, reader, patch_inputs, resolution,
+                            new_batch=None):
+        """Fixed-shape uint8 batches of the patch windows, ``(batch,
+        valid)``: one ``read_batch`` call per batch where the reader has
+        it (the native gather), else windows read by ``read_bounds`` on
+        ``nr_inference_workers`` threads. ``new_batch()`` returns the
+        (batch_size, h, w, 3) array each batch is read into (default: a
+        new one); rows past ``valid`` are zeroed."""
+        batch_size = int(self.batch_size)
+        in_w = int(patch_inputs[0, 2] - patch_inputs[0, 0])
+        in_h = int(patch_inputs[0, 3] - patch_inputs[0, 1])
+        if new_batch is None:
+            def new_batch():
+                return np.empty((batch_size, in_h, in_w, 3), np.uint8)
+
+        def read_one(bounds):
+            return reader.read_bounds(bounds, **resolution)
+
+        workers = int(getattr(self, "nr_inference_workers", 8) or 8)
+        use_batch_reader = hasattr(reader, "read_batch")
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            for start in range(0, len(patch_inputs), batch_size):
+                chunk = patch_inputs[start:start + batch_size]
+                batch = new_batch()
+                if use_batch_reader:
+                    batch[:len(chunk)] = reader.read_batch(chunk,
+                                                           **resolution)
+                else:
+                    for bi, patch in enumerate(pool.map(read_one, chunk)):
+                        batch[bi] = patch
+                batch[len(chunk):] = 0
+                yield batch, len(chunk)
+
+    def _run_tile_pipelined(self, reader, tile_in, tile_out, resolution,
+                            canvas):
+        """The legacy host-canvas loop over one inference tile's patches.
+
+          * a read thread fills host batches (``_read_patch_batches``) into
+            a ring of ``_LEGACY_BUFFERS`` pinned buffers, two batches
+            ahead of the forward (a bounded queue);
+          * the main thread copies each batch to the card without waiting
+            (the buffer goes back to the ring behind an event recorded
+            after its copy) and enqueues the forward;
+          * each batch's outputs are copied into a pinned host buffer on a
+            side stream that waits for the forward, and a writer thread
+            waits for that copy and lands the valid outputs in the disk
+            canvas (``CanvasSet.write_patches``); at most
+            ``_LEGACY_BUFFERS`` batches are between the card and the
+            canvas.
+
+        Pageable copies, or copies on the stream that runs the forward,
+        would make the read thread and the forward wait on each other. On
+        the CPU (the tests) the buffers are plain and the step's outputs
+        land as they are. Returns (the read thread's seconds reading, the
+        main thread's seconds waiting for it)."""
+        device = self.device
+        on_card = device.type == "cuda"
+        batch_size = int(self.batch_size)
+        in_w = int(tile_in[0, 2] - tile_in[0, 0])
+        in_h = int(tile_in[0, 3] - tile_in[0, 1])
+        stop = threading.Event()
+        _END = object()
+
+        class _Stopped(Exception):
+            pass
+
+        def take(q):
+            """``q.get()`` that gives up once the main loop has stopped."""
+            while not stop.is_set():
+                try:
+                    return q.get(timeout=0.5)
+                except queue.Empty:
+                    continue
+            raise _Stopped()
+
+        def bounded_put(q, item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.5)
+                    return
+                except queue.Full:
+                    continue
+            raise _Stopped()
+
+        in_free: "queue.Queue" = queue.Queue()
+        for _ in range(_LEGACY_BUFFERS):
+            in_free.put((torch.empty((batch_size, in_h, in_w, 3),
+                                     dtype=torch.uint8, pin_memory=on_card),
+                         None))
+        read_q: "queue.Queue" = queue.Queue(maxsize=2)
+        read_s = [0.0]
+
+        def read_worker():
+            held = []
+
+            def new_batch():
+                buf, event = take(in_free)
+                if event is not None:
+                    event.synchronize()  # its copy to the card is done
+                held.append(buf)
+                return buf.numpy()
+
+            try:
+                t0 = time.perf_counter()
+                for _batch, valid in self._read_patch_batches(
+                        reader, tile_in, resolution, new_batch):
+                    read_s[0] += time.perf_counter() - t0
+                    bounded_put(read_q, (held.pop(0), valid))
+                    t0 = time.perf_counter()
+                bounded_put(read_q, _END)
+            except _Stopped:
+                pass
+            except BaseException as exc:  # raised again in the main loop
+                try:
+                    bounded_put(read_q, exc)
+                except _Stopped:
+                    pass
+
+        copy_stream = torch.cuda.Stream(device) if on_card else None
+        out_free: "queue.Queue" = queue.Queue()
+        n_out = 0
+
+        def land(host, done, coords, valid):
+            if done is not None:
+                done.synchronize()
+            canvas.write_patches(host[:valid].numpy(), coords)
+            if on_card:
+                out_free.put(host)
+
+        reader_thread = threading.Thread(target=read_worker, daemon=True)
+        reader_thread.start()
+        writer = ThreadPoolExecutor(max_workers=1)
+        write_futs = []
+        cursor = 0
+        wait_s = 0.0
+        try:
+            while True:
+                t0 = time.perf_counter()
+                item = read_q.get()
+                wait_s += time.perf_counter() - t0
+                if item is _END:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                buf, valid = item
+                if on_card:
+                    batch = buf.to(device, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                    in_free.put((buf, event))
+                    out = self.run_step(batch, self.patch_output_shape)
+                    # at most _LEGACY_BUFFERS outputs between card and disk
+                    while len(write_futs) >= _LEGACY_BUFFERS:
+                        write_futs.pop(0).result()
+                    if n_out < _LEGACY_BUFFERS:
+                        n_out += 1
+                        host = torch.empty(out.shape, dtype=out.dtype,
+                                           pin_memory=True)
+                    else:
+                        host = out_free.get_nowait()
+                    ready = torch.cuda.Event()
+                    ready.record()
+                    with torch.cuda.stream(copy_stream):
+                        copy_stream.wait_event(ready)
+                        host.copy_(out, non_blocking=True)
+                        done = torch.cuda.Event()
+                        done.record(copy_stream)
+                    out.record_stream(copy_stream)
+                else:
+                    host = self.run_step(buf, self.patch_output_shape)
+                    done = None
+                    in_free.put((buf, None))
+                write_futs.append(writer.submit(
+                    land, host, done, tile_out[cursor:cursor + valid],
+                    valid))
+                cursor += valid
+                while write_futs and write_futs[0].done():
+                    write_futs.pop(0).result()  # write errors surface early
+            for fut in write_futs:
+                fut.result()
+        finally:
+            stop.set()
+            writer.shutdown(wait=True)
+            reader_thread.join(timeout=60)
+        return read_s[0], wait_s
 
     # ------------------------------------------------------------------
     def _tissue_mask(self, reader, mask_path, wsi_proc_shape, resolution):
@@ -291,16 +536,23 @@ class InferManager(BaseInferManager):
 
         idx_dict, n_ch = make_channel_index_map(self.cfg.active_decoder_kwargs)
 
+        # the JAX engine's choice of loop, with gpu for its tpu
+        backend = getattr(self, "postproc_backend", "gpu")
+        resident = (backend in ("gpu", "tpu")
+                    and os.environ.get("CERBERUS_RESIDENT", "1") != "0")
+
         # mid-slide resume: the disk canvas + a tile-progress marker let a
         # preempted job continue this slide; done_tiles index the
-        # post-processing grid, so that grid, the patch geometry and the
-        # mask are in the fingerprint (the 1 marks the resident loop, as in
-        # the JAX package's marker)
+        # post-processing grid (resident) or the inference grid (legacy),
+        # so the grids, the loop (1 resident, 0 legacy, as in the JAX
+        # package's marker), the patch geometry and the mask are in the
+        # fingerprint
         progress_path = os.path.join(self.cache_path, "progress.json")
         grid_fp = [int(ioconfig.tile_shape[0]),
                    int(ioconfig.patch_input_shape[0]),
                    int(ioconfig.patch_output_shape[0]),
-                   int(ioconfig.margin), 1, int(ioconfig_pp.tile_shape[0])]
+                   int(ioconfig.margin), int(resident),
+                   int(ioconfig_pp.tile_shape[0])]
         mask_fp = [list(map(int, wsi_mask.shape)), int(wsi_mask.sum())]
         done_tiles = set()
         resume = False
@@ -345,7 +597,7 @@ class InferManager(BaseInferManager):
         logger.info("Preparing Input Output Placement: %.4f"
                     % (time.perf_counter() - start))
 
-        # ===== inference + set-0 nuclei (resident loop) ==================
+        # ===== inference (+ set-0 nuclei in the resident loop) ==========
         start = time.perf_counter()
         pp_sets = get_tile_info(wsi_proc_shape_xy, ioconfig_pp)
         nuclei_inst_info = {}
@@ -358,24 +610,49 @@ class InferManager(BaseInferManager):
             with info_lock:
                 nuclei_inst_info.update(new_dict)
 
-        proc = resident_wsi.ResidentWSIProcessor(
-            self, idx_dict, n_ch,
-            postproc_code=self.decoder_dict.get("Nuclei-INST"),
-            output_shape=int(self.patch_output_shape))
-        with torch.profiler.record_function("wsi/inference"):
-            deferred = proc.run(
-                reader, resolution, patch_inputs, patch_outputs, pp_sets[0],
-                wsi_mask, wsi_proc_shape_xy, done_tiles, save_progress,
-                canvas, grid_tile)
-        logger.info("Resident grid tiles: %d deferred to the disk canvas"
-                    % len(deferred))
+        if resident:
+            proc = resident_wsi.ResidentWSIProcessor(
+                self, idx_dict, n_ch,
+                postproc_code=self.decoder_dict.get("Nuclei-INST"),
+                output_shape=int(self.patch_output_shape))
+            with torch.profiler.record_function("wsi/inference"):
+                deferred = proc.run(
+                    reader, resolution, patch_inputs, patch_outputs,
+                    pp_sets[0], wsi_mask, wsi_proc_shape_xy, done_tiles,
+                    save_progress, canvas, grid_tile)
+            logger.info("Resident grid tiles: %d deferred to the disk canvas"
+                        % len(deferred))
+        else:
+            # legacy: the inference grid's tiles through the host canvas;
+            # every set-0 tile is post-processed from the disk canvas below
+            read_s = read_wait_s = 0.0
+            set_bounds, _ = get_tile_info(wsi_proc_shape_xy, ioconfig)[0]
+            with torch.profiler.record_function("wsi/inference"):
+                for tile_idx, tile_bounds in enumerate(set_bounds):
+                    if tile_idx in done_tiles:
+                        continue
+                    tile_sel = assign_patches_to_tiles(patch_outputs,
+                                                       tile_bounds)
+                    if len(tile_sel) > 0:
+                        read, wait = self._run_tile_pipelined(
+                            reader, patch_inputs[tile_sel],
+                            patch_outputs[tile_sel], resolution, canvas)
+                        read_s += read
+                        read_wait_s += wait
+                        canvas.flush()
+                    done_tiles.add(tile_idx)
+                    save_progress()
+            deferred = range(len(pp_sets[0][0]))
+            logger.info("Legacy Read Time: %.4f" % read_s)
+            logger.info("Legacy Read Wait Time: %.4f" % read_wait_s)
         logger.info("Inference Time: %.4f" % (time.perf_counter() - start))
 
-        # ===== nuclei boundary repair (sets 1-3, deferred set 0) =========
+        # ===== nuclei post-processing (sets 1-3, deferred set 0) =========
         start = time.perf_counter()
         if "Nuclei-INST" in idx_dict:
             postproc_code = self.decoder_dict["Nuclei-INST"]
             deferred = set(deferred)
+            pool = getattr(self, "_postproc_workers", None)
             with ThreadPoolExecutor(max_workers=3) as host_pool, \
                     torch.profiler.record_function("wsi/nuclei_sets"):
                 # the tissue test sums the whole mask: once, for every tile
@@ -400,6 +677,16 @@ class InferManager(BaseInferManager):
                         ref_boxes = (np.array([nuclei_inst_info[u]["box"]
                                                for u in ref_uids])
                                      if ref_uids else np.zeros((0, 4)))
+                        if backend == "cpu":
+                            # the pool's workers open the canvas by path
+                            futures.append((pool or host_pool).submit(
+                                host_tile_instances,
+                                canvas.raw_path if pool else canvas.raw,
+                                tile_bounds, idx_dict["Nuclei-INST"],
+                                idx_dict.get("Nuclei-TYPE"), postproc_code,
+                                pp_flags[tile_idx], set_idx, ref_boxes,
+                                ref_uids, margin))
+                            continue
                         inst_map, type_map = boundary_tile_labels(
                             canvas.raw, tile_bounds, idx_dict["Nuclei-INST"],
                             idx_dict.get("Nuclei-TYPE"), postproc_code,
@@ -494,11 +781,20 @@ class InferManager(BaseInferManager):
                 pred_inst_map, pred_type_map = {}, {}
                 for tissue_code in target_list:
                     region, new_idx = regions[tissue_code]
-                    pred_inst_map[tissue_code], pred_type_map[tissue_code] = \
-                        region_instance_map(
-                            region, new_idx, tissue_code,
-                            self.decoder_dict[f"{tissue_code}-INST"], ds,
+                    code = self.decoder_dict[f"{tissue_code}-INST"]
+                    if backend == "cpu":
+                        result = POSTPROC_FUNC_DICT[code].post_process(
+                            region, new_idx, tissue_code, ds)
+                    elif resident:
+                        result = region_instance_map(
+                            region, new_idx, tissue_code, code, ds,
                             self.device)
+                    else:
+                        result = region_post_process(
+                            region, new_idx, tissue_code, code, ds,
+                            self.device)
+                    pred_inst_map[tissue_code], pred_type_map[tissue_code] = \
+                        result
                 if "Gland" in pred_inst_map and "Lumen" in pred_inst_map:
                     binary_gland = (pred_inst_map["Gland"] > 0).astype(
                         pred_inst_map["Lumen"].dtype)
@@ -540,8 +836,8 @@ class InferManager(BaseInferManager):
         self._parse_args(run_args)
         backend = getattr(self, "postproc_backend", "gpu")
         if backend not in POSTPROC_BACKENDS:
-            raise NotImplementedError(
-                "postproc_backend=%r is not ported yet (use gpu)" % backend)
+            raise ValueError("postproc_backend=%r: use one of %s"
+                             % (backend, POSTPROC_BACKENDS))
 
         if not os.path.exists(self.cache_path):
             rm_n_mkdir(self.cache_path)
@@ -566,6 +862,23 @@ class InferManager(BaseInferManager):
             tile_shape=int(getattr(self, "tile_shape", 4096)),
             margin=int(getattr(self, "ambiguous_size", 64)))
 
+        # the cpu backend's nuclei tiles in spawned processes: they get the
+        # canvas path and numpy only (a forked child of a process that has
+        # initialised CUDA cannot use it, and the families need no card)
+        nr_pp = int(getattr(self, "nr_post_proc_workers", 0) or 0)
+        self._postproc_workers = (
+            ProcessPoolExecutor(
+                nr_pp, mp_context=multiprocessing.get_context("spawn"))
+            if backend == "cpu" and nr_pp > 0 else None)
+        try:
+            self._process_slides(ioconfig, ioconfig_pp, logging_dir)
+        finally:
+            if self._postproc_workers is not None:
+                self._postproc_workers.shutdown()
+                self._postproc_workers = None
+        rm_n_mkdir(self.cache_path)
+
+    def _process_slides(self, ioconfig, ioconfig_pp, logging_dir):
         for wsi_path, mask_path in zip(self.input_list, self.mask_list):
             wsi_basename = pathlib.Path(wsi_path).stem
             start = time.perf_counter()
@@ -595,4 +908,3 @@ class InferManager(BaseInferManager):
             finally:
                 self.logger.removeHandler(fhandler)
                 fhandler.close()
-        rm_n_mkdir(self.cache_path)

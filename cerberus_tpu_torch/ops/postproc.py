@@ -1,12 +1,180 @@
-"""Instance-info extraction on the host (a copy of
-``cerberus_tpu/ops/postproc.py:175-267``; reference ``loader/postproc.py``
-:12-98). cv2 and scipy are imported inside the function.
+"""Instance post-processing on the host: the scipy/cv2 oracle families of
+``--postproc_backend=cpu`` and instance-info extraction.
+
+A copy of ``cerberus_tpu/ops/postproc.py`` (reference
+``loader/postproc.py``):
+  * ``PostProcInstErodedMap`` (:147-265): threshold fg>0.5, remove small
+    objects (1500 gland / 150 lumen / 8 nuclei), connected components, then
+    per-instance elliptical dilation (k=11 gland, 3 lumen/nuclei) +
+    fill-holes re-growth.
+  * ``PostProcInstErodedContourMap`` (:268-407), the family active in
+    ``paramset.yml:37-43``: gland/lumen fg = inner - binarized contour,
+    threshold (0.55 gland / 0.5 lumen), small-object removal scaled by
+    ds_factor^2, label, per-instance dilate+fill with the reference's
+    border clamp; nuclei = marker-based watershed on -inner_prob.
+  * ``get_inst_info_dict`` (:12-98): per-instance bbox / cv2-moments centroid
+    / contour polygon / majority-vote type (2nd-most if majority is bg).
+
+Inputs and outputs are numpy. cv2 and scipy.ndimage are imported inside
+the functions that use them.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional
 
 import numpy as np
+
+from .cc_cpu import binary_fill_holes, label, remove_small_objects, watershed
+
+
+def _ellipse(ksize: int) -> np.ndarray:
+    import cv2
+
+    return cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (ksize, ksize))
+
+
+def _regrow_instances(inst_lab: np.ndarray, ksize: int, pad: int) -> np.ndarray:
+    """Per-instance dilate + fill-holes re-growth onto a fresh canvas.
+
+    Replicates the reference's quirky bbox expansion: each side extends by
+    ``pad`` only when the whole pad fits inside the image, else stays put
+    (loader/postproc.py:164-169). Later ids overwrite earlier ones where the
+    regrown masks overlap (iteration in ascending id order).
+    """
+    import cv2
+    from scipy import ndimage
+
+    output_map = np.zeros(inst_lab.shape, dtype=np.float64)
+    if inst_lab.max() == 0:
+        return output_map
+    k_disk = _ellipse(ksize) if ksize > 0 else None
+    objects = ndimage.find_objects(inst_lab)
+    h, w = inst_lab.shape
+    for inst_id, slc in enumerate(objects, start=1):
+        if slc is None:
+            continue
+        y1, y2 = slc[0].start, slc[0].stop
+        x1, x2 = slc[1].start, slc[1].stop
+        y1 = y1 - pad if y1 - pad >= 0 else y1
+        x1 = x1 - pad if x1 - pad >= 0 else x1
+        x2 = x2 + pad if x2 + pad <= w - 1 else x2
+        y2 = y2 + pad if y2 + pad <= h - 1 else y2
+        inst_map_crop = (inst_lab[y1:y2, x1:x2] == inst_id).astype(np.uint8)
+        if k_disk is not None:
+            inst_map_crop = cv2.dilate(inst_map_crop, k_disk, iterations=1)
+        inst_map_crop = binary_fill_holes(inst_map_crop)
+        output_region = output_map[y1:y2, x1:x2]
+        output_region[inst_map_crop > 0] = inst_id
+    return output_map
+
+
+def _threshold_label_regrow(inst_fg: np.ndarray, thresh: float, min_size: int,
+                            ksize: int, pad: int) -> np.ndarray:
+    fg = np.asarray(np.squeeze(inst_fg) > thresh)
+    fg = remove_small_objects(fg, min_size=min_size)
+    inst_lab, _ = label(fg)
+    return _regrow_instances(inst_lab, ksize, pad)
+
+
+class PostProcInstErodedMap:
+    """Threshold + component + re-growth family (IP-ERODED-{3,11} codes)."""
+
+    _SPEC = {  # tissue -> (min_size, ksize)
+        "GLAND": (1500, 11),
+        "LUMEN": (150, 3),
+        "NUCLEI": (8, 3),
+    }
+
+    @classmethod
+    def post_process(cls, raw_map, idx_dict, tissue_mode, ds_factor=1.0):
+        tissue_mode_u = tissue_mode.upper()
+        assert tissue_mode_u in cls._SPEC
+        min_size, ksize = cls._SPEC[tissue_mode_u]
+        tissue_ch = "%s-INST" % tissue_mode
+        assert tissue_ch in idx_dict
+        inst_fg = raw_map[..., idx_dict[tissue_ch][0]: idx_dict[tissue_ch][1]]
+        inst_map = _threshold_label_regrow(inst_fg, 0.5, min_size, ksize,
+                                           pad=ksize * 2)
+        type_ch = tissue_mode + "-TYPE"
+        type_map = (raw_map[..., idx_dict[type_ch][0]: idx_dict[type_ch][1]]
+                    if type_ch in idx_dict else None)
+        return inst_map, type_map
+
+
+class PostProcInstErodedContourMap:
+    """Inner-minus-contour + re-growth (gland/lumen) / marker watershed
+    (nuclei) family (IP-ERODED-CONTOUR-{3,11} codes) — the active default."""
+
+    @staticmethod
+    def _proc_inner_contour(inst_fg, base_ksize, thresh, base_min_size,
+                            ds_factor):
+        ksize = int((base_ksize - 1) * ds_factor)
+        inst_inner_raw = inst_fg[..., 0]
+        inst_cnt = (inst_fg[..., 1] > 0.5).astype(inst_fg.dtype)
+        fg = np.asarray((inst_inner_raw - inst_cnt) > thresh)
+        fg = remove_small_objects(fg, min_size=int(base_min_size * ds_factor ** 2))
+        inst_lab, _ = label(fg)
+        return _regrow_instances(inst_lab, ksize, pad=ksize * 2)
+
+    @classmethod
+    def _proc_gland(cls, inst_fg, ds_factor=1.0):
+        return cls._proc_inner_contour(inst_fg, 11, 0.55, 1000, ds_factor)
+
+    @classmethod
+    def _proc_lumen(cls, inst_fg, ds_factor=1.0):
+        return cls._proc_inner_contour(inst_fg, 3, 0.5, 150, ds_factor)
+
+    @staticmethod
+    def _proc_nuclei(inst_fg, ds_factor=1.0):
+        import cv2
+
+        k_disk = _ellipse(3)
+        inst_inner_raw = inst_fg[..., 0]
+        inst_raw = inst_inner_raw + inst_fg[..., 1]
+        inst_msk = np.asarray(inst_raw > 0.5)
+        if inst_msk.sum() == 0:
+            return np.zeros(inst_msk.shape, dtype=np.float64)
+        inst_msk = cv2.erode(inst_msk.astype("uint8"), k_disk, iterations=1)
+        inst_msk, _ = label(inst_msk)
+        inst_msk = remove_small_objects(inst_msk, min_size=8)
+        inst_msk = inst_msk > 0
+
+        inst_mrk, _ = label(np.asarray(inst_inner_raw > 0.5))
+        inst_mrk = remove_small_objects(inst_mrk, min_size=4)
+        marker = binary_fill_holes(inst_mrk)
+        marker, _ = label(marker)
+        return watershed(-inst_inner_raw, marker, mask=inst_msk).astype(np.float64)
+
+    @classmethod
+    def post_process(cls, raw_map, idx_dict, tissue_mode, ds_factor=1.0):
+        func = {
+            "LUMEN": cls._proc_lumen,
+            "GLAND": cls._proc_gland,
+            "NUCLEI": cls._proc_nuclei,
+        }[tissue_mode.upper()]
+        idx_dict = copy.deepcopy(idx_dict)
+        tissue_ch = f"{tissue_mode}-INST"
+        assert tissue_ch in idx_dict
+        inst_fg = raw_map[..., idx_dict[tissue_ch][0]: idx_dict[tissue_ch][1]]
+        inst_map = func(inst_fg, ds_factor)
+
+        type_ch = tissue_mode + "-TYPE"
+        if type_ch in idx_dict:
+            type_map = np.squeeze(
+                raw_map[..., idx_dict[type_ch][0]: idx_dict[type_ch][1]])
+        else:
+            type_map = None
+        return inst_map, type_map
+
+
+# target encoding code -> post-processing family (infer/tile.py:35-40)
+POSTPROC_FUNC_DICT = {
+    "IP-ERODED-3": PostProcInstErodedMap,
+    "IP-ERODED-11": PostProcInstErodedMap,
+    "IP-ERODED-CONTOUR-3": PostProcInstErodedContourMap,
+    "IP-ERODED-CONTOUR-11": PostProcInstErodedContourMap,
+}
 
 
 def get_inst_info_dict(inst_map: np.ndarray, type_map: Optional[np.ndarray],

@@ -21,13 +21,15 @@ Options:
   --patch_input_shape=<n>     Shape of input patch to the network- Assume square shape. [default: 448]
   --patch_output_shape=<n>    Shape of network output- Assume square shape. [default: 144]
   --dense                     Dense inference: 1168->864 windows (~3x fewer FLOPs per output px at the same 152 px margin). Overrides the patch shape flags; use --batch_size=16 or less (windows are 6.8x larger)
-  --postproc_backend=<str>    Instance post-processing backend: gpu (on the card; tpu is an alias). cpu is not ported yet. [default: gpu]
+  --postproc_backend=<str>    Instance post-processing backend: gpu (the CUDA families on the card; tpu is an alias) or cpu (the scipy/cv2 families on the host). The default deliberately differs from the JAX CLI's cpu: --postproc_backend=cpu reproduces the reference's run. [default: gpu]
   --tile_backend=<str>        Tile engine: host (only host is ported). [default: host]
 
 Run as ``python -m cerberus_tpu_torch.run_infer_tile``. The flags are those
-of the JAX package's ``run_infer_tile.py``. The worker-count flags are
-accepted for compatibility; inference and post-processing run in-process
-on the card.
+of the JAX package's ``run_infer_tile.py``. ``--postproc_backend=cpu``
+(the JAX CLI's default, the reference's run) copies each stitched canvas to
+the host and runs the scipy/cv2 families there, in a pool of
+``--nr_post_proc_workers`` processes (0: in this process).
+``--nr_inference_workers`` is accepted for compatibility.
 """
 from __future__ import annotations
 
@@ -43,10 +45,6 @@ def main(argv=None, device=None) -> None:
     ``--gpu`` (the tests pass ``device="cpu"``)."""
     args = docopt(__doc__, argv=argv,
                   version="CoBi Gland Inference (cerberus-tpu-torch)")
-    if args["--postproc_backend"] == "cpu":
-        raise NotImplementedError(
-            "--postproc_backend=cpu (the scipy oracle) is not ported yet; "
-            "use gpu")
     if device is None:
         device = "cuda:%d" % int(str(args["--gpu"]).split(",")[0])
 
@@ -56,6 +54,8 @@ def main(argv=None, device=None) -> None:
     model_dir = args["--model"]
     paramset = load_settings(model_dir)
     run_args = {
+        "nr_inference_workers": int(args["--nr_inference_workers"]),
+        "nr_post_proc_workers": int(args["--nr_post_proc_workers"]),
         "batch_size": int(args["--batch_size"]),
         "input_dir": args["--input_dir"],
         "output_dir": output_dir,

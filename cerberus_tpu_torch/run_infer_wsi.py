@@ -36,7 +36,7 @@ Options:
   --save_thumb                Whether to save the slide thumbnail
   --save_mask                 Whether to save the slide mask
   --auto_mask                 Generate tissue masks automatically (stain-entropy Otsu) for slides without one
-  --postproc_backend=<str>    Instance post-processing backend: gpu (on the card; tpu is an alias). cpu is not ported yet. [default: gpu]
+  --postproc_backend=<str>    Instance post-processing backend: gpu (the CUDA families on the card; tpu is an alias) or cpu (the scipy/cv2 families on the host). The default deliberately differs from the JAX CLI's cpu: --postproc_backend=cpu reproduces the reference's run. [default: gpu]
   --save_json                 Also export per-slide instance dictionaries as json/<name>.json
 
 Run as ``python -m cerberus_tpu_torch.run_infer_wsi``. The flags are those
@@ -45,8 +45,14 @@ slides [(bulk_idx-1)*step, bulk_idx*step) of the sorted list are processed
 per invocation, the cache path is suffixed with the bulk index, and slides
 lacking a mask are skipped when --msk_dir is given. ``.npy`` pyramid
 directories (holding ``level_0.npy``) in the input directory are slides
-too. The worker-count flags are accepted for compatibility; inference and
-post-processing run in-process on the card.
+too. ``--postproc_backend=gpu`` runs the resident loop (inference and
+post-processing on the card); ``CERBERUS_RESIDENT=0`` selects the legacy
+host-canvas loop with the same CUDA families, and
+``--postproc_backend=cpu`` (the JAX CLI's default, the reference's run)
+the legacy loop with the scipy/cv2 families on the host.
+``--nr_post_proc_workers`` sizes the cpu backend's process pool (0: in
+this process); ``--nr_inference_workers`` the legacy loop's read threads
+for readers without a batched read.
 """
 from __future__ import annotations
 
@@ -82,10 +88,6 @@ def main(argv=None, device=None) -> None:
     (the tests pass ``device="cpu"``)."""
     args = docopt(__doc__, argv=argv,
                   version="CoBi Gland Inference (cerberus-tpu-torch)")
-    if args["--postproc_backend"] == "cpu":
-        raise NotImplementedError(
-            "--postproc_backend=cpu (the scipy oracle) is not ported yet; "
-            "use gpu")
     if device is None:
         device = "cuda:%d" % int(str(args["--gpu"]).split(",")[0])
 
@@ -104,6 +106,8 @@ def main(argv=None, device=None) -> None:
     model_dir = args["--model"]
     paramset = load_settings(model_dir)
     run_args = {
+        "nr_inference_workers": int(args["--nr_inference_workers"]),
+        "nr_post_proc_workers": int(args["--nr_post_proc_workers"]),
         "batch_size": int(args["--batch_size"]),
         "input_list": wsi_list,
         "mask_list": mask_list,

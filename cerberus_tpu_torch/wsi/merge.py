@@ -1,13 +1,13 @@
 """The disk-backed prediction canvas of a slide.
 
-A copy of ``CanvasSet`` from ``cerberus_tpu/wsi/merge.py:28-121``, as the
-resident loop uses it: one (H, W, C) float16 ``.npy`` memmap under the
-cache directory (``raw.npy``), landed one grid tile at a time
-(``write_region``) and read back for mid-slide resume, the tissue map, the
-nuclei boundary-repair tiles and the gland/lumen region reads. Patches are
-partitioned across tiles, so every value is written exactly once and the
-JAX class's count canvas and per-patch ``write_patches`` (the legacy
-host-canvas loop's) have no caller here.
+A copy of ``CanvasSet`` from ``cerberus_tpu/wsi/merge.py:28-121``: one
+(H, W, C) float16 ``.npy`` memmap under the cache directory (``raw.npy``),
+landed one grid tile at a time by the resident loop (``write_region``) or
+one batch of patch outputs at a time by the legacy host-canvas loop
+(``write_patches``), and read back for mid-slide resume, the tissue map,
+the nuclei post-processing tiles and the gland/lumen region reads. Patches
+are partitioned across tiles, so every value is written exactly once and
+the JAX class's count canvas (for overlapping strides) has no caller here.
 """
 from __future__ import annotations
 
@@ -36,6 +36,18 @@ class CanvasSet:
         if self.raw is None:
             self.raw = np.lib.format.open_memmap(
                 self.raw_path, mode="w+", dtype=DTYPE, shape=self.shape)
+
+    def write_patches(self, predictions: np.ndarray,
+                      locations: np.ndarray) -> None:
+        """predictions: (N, h, w, C); locations: (N, 4) XY output bounds.
+        Out-of-canvas parts of edge windows are clipped."""
+        H, W, _ = self.shape
+        for pred, (x0, y0, x1, y1) in zip(predictions, locations):
+            cx1, cy1 = min(int(x1), W), min(int(y1), H)
+            pw, ph = cx1 - int(x0), cy1 - int(y0)
+            if pw <= 0 or ph <= 0:
+                continue
+            self.raw[y0:cy1, x0:cx1] = pred[:ph, :pw]
 
     def write_region(self, bounds, values: np.ndarray) -> None:
         """Land one contiguous region (XY bounds) in a single strided write,

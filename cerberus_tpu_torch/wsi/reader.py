@@ -1,12 +1,17 @@
 """Whole-slide readers with pyramid-level selection.
 
-Counterpart of ``cerberus_tpu/wsi/reader.py:48-256,442-447,462-463``:
-``WSIReader`` (mpp-aware ``slide_dimensions``, bounds reads at a requested
-resolution, thumbnails), ``NpyPyramidReader`` (a directory of
-``level_<N>.npy`` arrays + ``meta.yml``, or a bare ``.npy``; every level is
-mmap'd and reads touch only the requested window), ``ImageReader`` (png /
-jpg) and ``VirtualWSIReader`` (an in-memory array), with ``open_wsi``'s
-extension dispatch for those formats.
+Counterpart of ``cerberus_tpu/wsi/reader.py``: ``WSIReader`` (mpp-aware
+``slide_dimensions``, bounds reads at a requested resolution, thumbnails),
+``NpyPyramidReader`` (a directory of ``level_<N>.npy`` arrays +
+``meta.yml``, or a bare ``.npy``; every level is mmap'd and reads touch
+only the requested window; ``read_batch`` gathers a batch of windows with
+the native C++ gather), ``ImageReader`` (png / jpg), ``VirtualWSIReader``
+(an in-memory array), ``OpenSlideReader`` and ``JP2Reader`` (openslide and
+glymur imported when a slide is opened), ``Jp2NativeReader`` (cv2's
+OpenJPEG), and ``open_wsi``'s extension dispatch with the JAX package's
+fallbacks. TIFF-based slides (SVS, NDPI, SCN, BIF, Philips) go to
+``tiff_reader.TiffSlideReader`` and MIRAX to
+``mirax_reader.MiraxSlideReader`` when OpenSlide is absent.
 
 ``read_bounds`` picks the coarsest level whose downsample is at most the
 requested scale, reads only that window and resizes it when the level is
@@ -14,10 +19,6 @@ not the requested scale; huge reads decimate straight off the memmap.
 Out-of-bounds regions are zero-padded. cv2 (resizes, png/jpg decode) and
 PyYAML (``meta.yml``) are imported inside the functions that need them: a
 read at a native pyramid level needs neither.
-
-The JAX package's TIFF/SVS, MIRAX, OpenSlide and JPEG 2000 readers, and
-the batched native gather of its legacy loop, are not ported yet (ROADMAP
-queue 1); ``open_wsi`` refuses those formats.
 """
 from __future__ import annotations
 
@@ -32,9 +33,6 @@ import numpy as np
 # beyond this many level pixels a single read switches to the strided
 # (read-time decimation) path
 _MAX_READ_PIXELS = 1 << 26
-
-NOT_PORTED_FORMATS = (".tif", ".tiff", ".svs", ".ndpi", ".mrxs", ".scn",
-                      ".vms", ".vmu", ".svslide", ".bif", ".jp2", ".j2k")
 
 
 @dataclasses.dataclass
@@ -183,6 +181,34 @@ class NpyPyramidReader(WSIReader):
         return _to_rgb_u8(np.asarray(
             self._levels[lvl][y0:y1:stride, x0:x1:stride]))
 
+    def read_batch(self, bounds_list, resolution: float, units: str = "mpp"
+                   ) -> np.ndarray:
+        """Batched window read, (N, h, w, 3) uint8. When the requested
+        scale is a pyramid level, one threaded C++ gather straight off that
+        level's memmap (``native.patch_gather``); other scales read each
+        window with ``read_bounds``, on threads (cv2 and numpy release the
+        GIL)."""
+        scale = self._scale_for(resolution, units)
+        bounds = np.asarray(bounds_list)
+        win_w = int(bounds[0, 2] - bounds[0, 0])
+        win_h = int(bounds[0, 3] - bounds[0, 1])
+        lvl, ds = self._best_level(scale)
+        level = self._levels[lvl]
+        if abs(scale / ds - 1.0) < 1e-9 and level.ndim == 3 \
+                and level.shape[2] == 3:
+            from ..native.patch_gather import gather_patches
+
+            return gather_patches(level, bounds[:, [1, 0]], win_h, win_w)
+        if len(bounds) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(max_workers=min(8, len(bounds))) as pool:
+                return np.stack(list(pool.map(
+                    lambda b: self.read_bounds(b, resolution, units),
+                    bounds)))
+        return np.stack([self.read_bounds(b, resolution, units)
+                         for b in bounds])
+
 
 class ImageReader(NpyPyramidReader):
     """png/jpg behind the WSIReader API (loaded fully; small inputs only)."""
@@ -215,18 +241,210 @@ class VirtualWSIReader(WSIReader):
         return _to_rgb_u8(self._img[y0:y1, x0:x1])
 
 
+class OpenSlideReader(WSIReader):
+    """OpenSlide-backed pyramid reader (``openslide`` imported when a slide
+    is opened). Reads go through the best native level."""
+
+    def __init__(self, path: str):
+        import openslide
+
+        self._slide = openslide.OpenSlide(path)
+        props = self._slide.properties
+        mpp = float(props.get("openslide.mpp-x", 0.25))
+        power = props.get("openslide.objective-power")
+        w, h = self._slide.dimensions
+        self.info = SlideInfo(mpp=mpp, slide_dimensions=(w, h),
+                              objective_power=float(power) if power else None)
+        self._level_downsamples = [float(d)
+                                   for d in self._slide.level_downsamples]
+
+    def _read_level(self, lvl, x0, y0, x1, y1):
+        ds = self._level_downsamples[lvl]
+        # openslide addresses the location in LEVEL-0 coordinates
+        region = self._slide.read_region(
+            (int(round(x0 * ds)), int(round(y0 * ds))), lvl,
+            (x1 - x0, y1 - y0))
+        region = np.asarray(region.convert("RGB")
+                            if hasattr(region, "convert") else region)
+        return _to_rgb_u8(region)
+
+
+class JP2Reader(WSIReader):
+    """JPEG 2000 through glymur (imported when a slide is opened) with
+    pseudo-levels: JP2 streams have no stored pyramid, so the levels are
+    powers of two read as strided slices of the codestream
+    (``jp2[y0:y1:s, x0:x1:s]``, 6 levels)."""
+
+    N_PSEUDO_LEVELS = 6
+
+    def __init__(self, path: str, mpp: Optional[float] = None,
+                 objective_power: Optional[float] = 40.0):
+        import glymur
+
+        self._jp2 = glymur.Jp2k(path)
+        h, w = self._jp2.shape[:2]
+        if mpp is None:
+            mpp = 0.275  # the reference's CRC-slide default without metadata
+        self.info = SlideInfo(mpp=float(mpp), slide_dimensions=(w, h),
+                              objective_power=objective_power)
+        self._level_downsamples = [float(2 ** k)
+                                   for k in range(self.N_PSEUDO_LEVELS)]
+
+    def _plane(self):
+        """The sliceable full-resolution pixel source."""
+        return self._jp2
+
+    def _read_level(self, lvl, x0, y0, x1, y1):
+        s = int(self._level_downsamples[lvl])
+        region = self._plane()[y0 * s:y1 * s:s, x0 * s:x1 * s:s]
+        return _to_rgb_u8(np.asarray(region))
+
+    def _read_level_strided(self, lvl, x0, y0, x1, y1, stride):
+        # the extra stride folds into the pseudo-level step
+        ds = int(self._level_downsamples[lvl])
+        region = self._plane()[y0 * ds:y1 * ds:ds * stride,
+                               x0 * ds:x1 * ds:ds * stride]
+        return _to_rgb_u8(np.asarray(region))
+
+
+class Jp2NativeReader(WSIReader):
+    """JPEG 2000 (.jp2 / .j2k) through cv2's bundled OpenJPEG, with
+    ``JP2Reader``'s pseudo-levels. cv2 has no region decode, so the first
+    pixel access decodes the whole codestream once and keeps it; every
+    level is a strided view (the same values as glymur's slicing).
+    Geometry comes from the JP2 ihdr box or the J2K SIZ marker without a
+    decode. The frame must fit cv2.imdecode's pixel cap
+    (``OPENCV_IO_MAX_IMAGE_PIXELS``, default 2^30), checked at open."""
+
+    N_PSEUDO_LEVELS = JP2Reader.N_PSEUDO_LEVELS
+
+    def __init__(self, path: str, mpp: Optional[float] = None,
+                 objective_power: Optional[float] = 40.0):
+        self._path = path
+        self._img: Optional[np.ndarray] = None
+        w, h = self._parse_dimensions(path)
+        try:
+            cap = int(os.environ.get("OPENCV_IO_MAX_IMAGE_PIXELS",
+                                     1 << 30))
+        except ValueError:
+            cap = 1 << 30
+        if w * h > cap:
+            raise RuntimeError(
+                f"{path}: {w}x{h} exceeds cv2.imdecode's pixel cap "
+                f"({cap}); the native .jp2 path decodes the whole frame. "
+                "Install glymur for windowed decode, convert the slide to "
+                "an .npy pyramid (python -m cerberus_tpu_torch.convert_slide"
+                "), or raise OPENCV_IO_MAX_IMAGE_PIXELS if RAM allows")
+        if mpp is None:
+            mpp = 0.275
+        self.info = SlideInfo(mpp=float(mpp), slide_dimensions=(w, h),
+                              objective_power=objective_power)
+        self._level_downsamples = [float(2 ** k)
+                                   for k in range(self.N_PSEUDO_LEVELS)]
+
+    @staticmethod
+    def _parse_dimensions(path: str) -> tuple:
+        """(w, h) from the JP2 'ihdr' box or the raw codestream's SIZ
+        marker: an ISO 15444-1 box walk, box to box, honouring LBox 1
+        (64-bit XLBox follows) and 0 (box runs to the end of the file)."""
+        import struct
+
+        fsize = os.path.getsize(path)
+        with open(path, "rb") as f:
+            sig = f.read(4)
+            if sig == b"\xff\x4f\xff\x51":   # SOC + SIZ (raw codestream)
+                # SOC(2) SIZ(2) Lsiz(2) Rsiz(2) then Xsiz Ysiz XOsiz YOsiz
+                head = sig + f.read(20)
+                xs, ys, xo, yo = struct.unpack(">4I", head[8:24])
+                return xs - xo, ys - yo
+            pos = 0
+            while pos + 8 <= fsize:          # JP2 box walk (top + jp2h)
+                f.seek(pos)
+                hdr = f.read(8)
+                if len(hdr) < 8:
+                    break
+                length, btype = struct.unpack(">I4s", hdr)
+                hdr_len = 8
+                if length == 1:              # XLBox: 64-bit length follows
+                    ext = f.read(8)
+                    if len(ext) < 8:
+                        break
+                    (length,) = struct.unpack(">Q", ext)
+                    hdr_len = 16
+                elif length == 0:            # box extends to end of file
+                    length = fsize - pos
+                if btype == b"ihdr":
+                    h, w = struct.unpack(">2I", f.read(8))
+                    return w, h
+                if btype == b"jp2h":         # descend into the superbox
+                    pos += hdr_len
+                    continue
+                if length < hdr_len:         # corrupt length: stop walking
+                    break
+                pos += length
+        raise ValueError(f"{path}: no JP2 ihdr box / J2K SIZ marker found "
+                         "(not a decodable JPEG2000 file?)")
+
+    def _plane(self) -> np.ndarray:
+        """The whole frame, decoded once."""
+        if self._img is None:
+            import cv2
+
+            with open(self._path, "rb") as f:
+                data = np.frombuffer(f.read(), np.uint8)
+            img = cv2.imdecode(data, cv2.IMREAD_COLOR)
+            if img is None:
+                raise ValueError(f"{self._path}: cv2/OpenJPEG failed to "
+                                 "decode the JPEG2000 stream")
+            self._img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        return self._img
+
+    _read_level = JP2Reader._read_level
+    _read_level_strided = JP2Reader._read_level_strided
+
+
 def open_wsi(path: str, mpp: Optional[float] = None) -> WSIReader:
-    """Extension dispatch: ``.npy`` pyramid directories and bare ``.npy``
-    files, ``.png`` / ``.jpg`` / ``.jpeg`` / ``.bmp``."""
+    """Extension dispatch, with the JAX package's fallbacks:
+
+      * ``.npy`` pyramid directories and bare ``.npy`` files;
+      * ``.tif`` / ``.tiff``: the native TIFF parser; a file it cannot
+        parse (``ValueError``, ``struct.error``) goes to ``ImageReader``;
+      * ``.png`` / ``.jpg`` / ``.jpeg`` / ``.bmp``;
+      * ``.jp2`` / ``.j2k``: glymur, else ``Jp2NativeReader`` (cv2);
+      * ``.svs``, ``.ndpi``, ``.mrxs``, ``.scn``, ``.vms``, ``.vmu``,
+        ``.svslide``, ``.bif``: OpenSlide, else ``MiraxSlideReader`` for
+        ``.mrxs`` and ``TiffSlideReader`` for the rest.
+    """
     ext = os.path.splitext(path)[1].lower()
     if os.path.isdir(path) or ext == ".npy":
         return NpyPyramidReader(path, mpp=mpp)
+    if ext in (".tif", ".tiff"):
+        import struct
+
+        from .tiff_reader import TiffSlideReader
+
+        try:
+            return TiffSlideReader(path, mpp=mpp)
+        except (ValueError, struct.error):
+            return ImageReader(path, mpp=mpp or 0.5)
     if ext in (".png", ".jpg", ".jpeg", ".bmp"):
         return ImageReader(path, mpp=mpp or 0.5)
-    if ext in NOT_PORTED_FORMATS:
-        raise NotImplementedError(
-            f"{path}: {ext} slides are not readable by the port yet (ROADMAP "
-            "queue 1, 'Other slide readers': wsi/tiff_reader.py, "
-            "wsi/mirax_reader.py, OpenSlide and JPEG 2000); convert the "
-            "slide to an .npy pyramid directory")
+    if ext in (".jp2", ".j2k"):
+        try:
+            return JP2Reader(path, mpp=mpp)
+        except ImportError:
+            return Jp2NativeReader(path, mpp=mpp)
+    if ext in (".svs", ".ndpi", ".mrxs", ".scn", ".vms", ".vmu",
+               ".svslide", ".bif"):
+        try:
+            return OpenSlideReader(path)
+        except ImportError:
+            pass
+        if ext == ".mrxs":
+            from .mirax_reader import MiraxSlideReader
+
+            return MiraxSlideReader(path, mpp=mpp)
+        from .tiff_reader import TiffSlideReader
+
+        return TiffSlideReader(path, mpp=mpp)
     raise ValueError(f"unsupported slide format: {path}")

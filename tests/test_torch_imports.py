@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of cerberus_tpu_torch loads
 neither JAX, flax, cv2, PyYAML, joblib nor anything of cerberus_tpu; the source
-imports none of them at top level; kernel launches have no fallback; entry
-points default to the card."""
+imports none of them at top level; kernel launches and the native patch
+gather have no fallback; entry points default to the card."""
 import os
 import pathlib
 import re
@@ -36,7 +36,9 @@ print("BAD", bad)
 print("WSI", sorted(m for m in sys.modules if m.startswith(
     ("cerberus_tpu_torch.wsi.", "cerberus_tpu_torch.infer.wsi",
      "cerberus_tpu_torch.infer.resident_wsi", "cerberus_tpu_torch.run_infer_wsi",
-     "cerberus_tpu_torch.ops.cc_cpu", "cerberus_tpu_torch.ops.tissue_mask"))))
+     "cerberus_tpu_torch.ops.cc_cpu", "cerberus_tpu_torch.ops.tissue_mask",
+     "cerberus_tpu_torch.ops.postproc", "cerberus_tpu_torch.native.",
+     "cerberus_tpu_torch.convert_slide"))))
 """
 
 
@@ -51,6 +53,11 @@ def test_import_all_modules_loads_no_jax_cv2_yaml_or_reference():
     wsi = eval(lines["WSI"])  # the whole-slide modules are in the probe
     assert {"cerberus_tpu_torch.infer.wsi", "cerberus_tpu_torch.run_infer_wsi",
             "cerberus_tpu_torch.wsi.reader",
+            "cerberus_tpu_torch.wsi.tiff_reader",
+            "cerberus_tpu_torch.wsi.mirax_reader",
+            "cerberus_tpu_torch.native.patch_gather",
+            "cerberus_tpu_torch.convert_slide",
+            "cerberus_tpu_torch.ops.postproc",
             "cerberus_tpu_torch.ops.tissue_mask"} <= set(wsi), wsi
 
 
@@ -70,9 +77,10 @@ def test_source_imports_no_jax_or_reference_package():
 
 
 def test_kernel_wrappers_have_no_fallback():
-    for name in ("cc_label.py", "hist16384.py", "watershed.py",
-                 "cuda_build.py", "device_postproc.py", "gpu_postproc.py"):
-        text = (PKG / "ops" / name).read_text()
+    for name in ("ops/cc_label.py", "ops/hist16384.py", "ops/watershed.py",
+                 "ops/cuda_build.py", "ops/device_postproc.py",
+                 "ops/gpu_postproc.py", "native/patch_gather.py"):
+        text = (PKG / name).read_text()
         assert not re.search(r"^\s*(try:|except\b)", text, re.M), name
 
 

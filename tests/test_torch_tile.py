@@ -29,7 +29,13 @@ from cerberus_tpu.infer.steps import fused_infer_outputs
 from cerberus_tpu.infer.tile import post_process_tile
 from cerberus_tpu.models.net_desc import init_net_params
 from cerberus_tpu.ops.stitch import stitch_canvas as jax_stitch
-from cerberus_tpu_torch.infer.tile import InferManager, post_process_canvas
+from cerberus_tpu_torch.infer.tile import (
+    InferManager,
+    _host_postproc_and_info,
+    instance_info,
+    post_process_canvas,
+    post_process_host,
+)
 from cerberus_tpu_torch.models.convert import state_dict_from_jax_params
 from cerberus_tpu_torch.run_infer_tile import main
 
@@ -119,6 +125,24 @@ def both_paths(model_dir):
 
 
 @pytest.fixture(scope="module")
+def both_paths_cpu(model_dir, both_paths):
+    """The ``cpu`` backend on both sides: the JAX ``post_process_tile``
+    with ``backend="cpu"`` on its canvas, the port's ``post_process_host``
+    on the canvas its manager stitched."""
+    canvas = both_paths[0]
+    img = _image()
+    cfg = JaxModelConfig.from_kwargs(MODEL_KWARGS)
+    jax_results = post_process_tile(
+        canvas, {"name": "x", "src_image": img}, dict(DEFAULT_TARGET_CODE),
+        list(DEFAULT_TARGET_LIST), cfg.active_decoder_kwargs, backend="cpu")
+    port = post_process_host(
+        _manager(model_dir).infer_canvas(img).numpy(),
+        dict(DEFAULT_TARGET_CODE), list(DEFAULT_TARGET_LIST),
+        DEFAULT_DECODER_KWARGS)
+    return canvas, jax_results, port
+
+
+@pytest.fixture(scope="module")
 def both_paths_valid(model_dir):
     """224->72, where valid-region decoding engages on both sides."""
     _, params = model_dir
@@ -135,6 +159,37 @@ def test_process_image_agrees_with_jax_tile_path(both_paths):
 def test_process_image_valid_region_agrees_with_jax_tile_path(
         both_paths_valid):
     _assert_agrees(both_paths_valid)
+
+
+def test_cpu_backend_agrees_with_jax_cpu_backend(both_paths_cpu):
+    _assert_agrees(both_paths_cpu)
+
+
+def test_jax_canvas_through_port_cpu_backend_is_byte_equal(both_paths_cpu):
+    """The port's ``cpu`` backend on the JAX canvas gives the JAX ``cpu``
+    backend's maps and instance dictionaries, byte for byte."""
+    canvas, (_, _, ref_inst, ref_info, ref_type, ref_pclass), _ = \
+        both_paths_cpu
+    inst, types, pclass = post_process_host(
+        canvas, dict(DEFAULT_TARGET_CODE), list(DEFAULT_TARGET_LIST),
+        DEFAULT_DECODER_KWARGS)
+    info = instance_info(inst, types, list(DEFAULT_TARGET_LIST))
+    assert set(inst) == set(ref_inst) and ref_inst["Nuclei"].max() > 0
+    for task, ref in ref_inst.items():
+        assert inst[task].dtype == ref.dtype
+        np.testing.assert_array_equal(inst[task], ref, err_msg=task)
+        if ref_type[task] is None:
+            assert types[task] is None
+        else:
+            assert types[task].dtype == ref_type[task].dtype
+            np.testing.assert_array_equal(types[task], ref_type[task])
+        assert list(info[task]) == list(ref_info[task])
+        for k, entry in ref_info[task].items():
+            assert set(info[task][k]) == set(entry)
+            for field, value in entry.items():
+                np.testing.assert_array_equal(info[task][k][field], value)
+    assert pclass.dtype == ref_pclass.dtype
+    np.testing.assert_array_equal(pclass, ref_pclass)
 
 
 def _assert_agrees(paths):
@@ -193,8 +248,29 @@ def test_cli_main_writes_reference_outputs(model_dir, tmp_path):
         assert 0 <= pclass["pclass"].min() <= pclass["pclass"].max() <= 8
     with pytest.raises(AssertionError):  # skip-if-done: nothing left to do
         main(argv, device="cpu")
-    with pytest.raises(NotImplementedError):
-        main(argv + ["--postproc_backend=cpu"], device="cpu")
+    # the cpu backend in two spawned workers (numpy only) writes what the
+    # host families give in this process on the manager's canvas
+    cpu_dir = tmp_path / "output_cpu"
+    main([a.replace(str(output_dir), str(cpu_dir)) for a in argv]
+         + ["--postproc_backend=cpu", "--nr_post_proc_workers=2"],
+         device="cpu")
+    manager = _manager(model_dir)
+    for name, seed in (("t1", 1), ("t2", 2)):
+        inst, _, types, pclass = _host_postproc_and_info(
+            manager.infer_canvas(_image(seed, (100, 120))).numpy(),
+            dict(DEFAULT_TARGET_CODE), list(DEFAULT_TARGET_LIST),
+            DEFAULT_DECODER_KWARGS)
+        for task in ("gland", "lumen", "nuclei"):
+            mat = sio.loadmat(str(cpu_dir / ("%s_mat" % task)
+                                  / ("%s.mat" % name)))
+            np.testing.assert_array_equal(mat["inst_map"],
+                                          inst[task.capitalize()])
+            if task != "lumen":
+                np.testing.assert_array_equal(mat["type_map"],
+                                              types[task.capitalize()])
+        np.testing.assert_array_equal(
+            sio.loadmat(str(cpu_dir / "pclass_mat" / ("%s.mat" % name)))[
+                "pclass"], pclass)
 
 
 def test_cli_dense_selects_1168_to_864(model_dir, tmp_path, monkeypatch):

@@ -1,7 +1,10 @@
 """The WSI slice as a whole on the CPU: the port's whole-slide engine
-(``cerberus_tpu_torch.infer.wsi``, resident loop) against the JAX package's
-WSI engine, in its resident ``postproc_backend="tpu"`` mode and its legacy
-host-canvas mode.
+(``cerberus_tpu_torch.infer.wsi``) against the JAX package's WSI engine:
+the port's resident loop against the JAX resident ``postproc_backend="tpu"``
+mode and its legacy host-canvas mode; the port's legacy loop
+(``CERBERUS_RESIDENT=0`` with ``gpu``, and ``cpu``) against the JAX legacy
+loop with the matching backend; an ``.svs`` slide against its
+``convert_slide`` pyramid.
 
 Fixture geometry of ``tests/test_resident_wsi.py``: a 400x504 npy-pyramid
 slide of 8x8 random colour blocks, 144->48 windows, post-processing tiles of
@@ -124,10 +127,10 @@ def _torch_stub(_self, batch, out_sz):
 
 
 def _run_args(root, tag, slide, backend, geometry=(IN_SHAPE, OUT_SHAPE),
-              tile_shape=192):
+              tile_shape=192, workers=0):
     return {
         "nr_inference_workers": 2,
-        "nr_post_proc_workers": 0,
+        "nr_post_proc_workers": workers,
         "batch_size": 8,
         "input_list": [str(slide)],
         "mask_list": [None],
@@ -157,7 +160,8 @@ def _outputs(root, tag, slide):
     return dat, pclass
 
 
-def _jax_run(root, tag, slide, resident, params=None, **geometry):
+def _jax_run(root, tag, slide, resident, params=None, backend="tpu",
+             **geometry):
     """The JAX WSI engine; ``params=None`` runs the numpy stub forward,
     otherwise the model at f32."""
     from cerberus_tpu.infer.wsi import InferManager
@@ -172,7 +176,7 @@ def _jax_run(root, tag, slide, resident, params=None, **geometry):
             infer = InferManager(decoder_dict=dict(DEFAULT_TARGET_CODE),
                                  model_args=MODEL_KWARGS, params=params,
                                  compute_dtype=jnp.float32)
-        infer.process_wsi_list(_run_args(root, tag, slide, "tpu",
+        infer.process_wsi_list(_run_args(root, tag, slide, backend,
                                          **geometry))
     return _outputs(root, tag, slide)
 
@@ -183,11 +187,15 @@ def _port_manager(checkpoint=None):
                                  model_args=MODEL_KWARGS, device="cpu")
 
 
-def _port_run(root, tag, slide, checkpoint=None, **geometry):
+def _port_run(root, tag, slide, checkpoint=None, backend="gpu",
+              resident=True, **geometry):
     infer = _port_manager(checkpoint)
     if checkpoint is None:
         infer.run_step = _torch_stub.__get__(infer)
-    infer.process_wsi_list(_run_args(root, tag, slide, "gpu", **geometry))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CERBERUS_RESIDENT", "1" if resident else "0")
+        infer.process_wsi_list(_run_args(root, tag, slide, backend,
+                                         **geometry))
     return _outputs(root, tag, slide)
 
 
@@ -220,6 +228,18 @@ def port_stub(slide, tmp_path_factory):
     return _port_run(tmp_path_factory.mktemp("port_stub"), "port", slide)
 
 
+@pytest.fixture(scope="module")
+def port_legacy_gpu(slide, tmp_path_factory):
+    return _port_run(tmp_path_factory.mktemp("port_legacy"), "legacy", slide,
+                     resident=False)
+
+
+@pytest.fixture(scope="module")
+def jax_legacy_cpu(slide, tmp_path_factory):
+    return _jax_run(tmp_path_factory.mktemp("jax_cpu"), "legacy_cpu", slide,
+                    False, backend="cpu")
+
+
 def test_stub_forward_dat_matches_both_jax_paths(jax_stub, port_stub):
     (res_dat, res_pclass), (leg_dat, leg_pclass) = jax_stub
     dat, pclass = port_stub
@@ -230,6 +250,124 @@ def test_stub_forward_dat_matches_both_jax_paths(jax_stub, port_stub):
     for ref in (res_pclass, leg_pclass):
         assert pclass.dtype == ref.dtype and pclass.shape == ref.shape
         assert pclass.tobytes() == ref.tobytes()
+
+
+def test_legacy_loop_gpu_dat_matches_jax_legacy(jax_stub, port_legacy_gpu):
+    """``CERBERUS_RESIDENT=0`` with the ``gpu`` backend: the legacy
+    host-canvas loop and the CUDA families (their plain versions here)
+    equal the JAX legacy loop with its ``tpu`` families."""
+    _, (leg_dat, leg_pclass) = jax_stub
+    dat, pclass = port_legacy_gpu
+    assert all(len(dat[t]) > 0 for t in TASKS)
+    assert _payload(dat) == _payload(leg_dat)
+    np.testing.assert_array_equal(pclass, leg_pclass)
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_legacy_loop_cpu_dat_matches_jax_legacy(slide, jax_legacy_cpu,
+                                                tmp_path, workers):
+    """``postproc_backend="cpu"`` (the reference's default run): the legacy
+    loop and the scipy/cv2 families, in process and in two spawned
+    workers, equal the JAX legacy loop with its ``cpu`` families."""
+    ref_dat, ref_pclass = jax_legacy_cpu
+    dat, pclass = _port_run(tmp_path, "cpu", slide, backend="cpu",
+                            workers=workers)
+    assert all(len(dat[t]) > 0 for t in TASKS)
+    assert _payload(dat) == _payload(ref_dat)
+    np.testing.assert_array_equal(pclass, ref_pclass)
+
+
+def test_legacy_resume_after_interrupt(slide, port_legacy_gpu, tmp_path,
+                                       monkeypatch):
+    """``tests/test_wsi_resume.py``'s recipe on the port's legacy loop:
+    preempted at its second inference tile, the job records the first in
+    ``progress.json``; the rerun skips it and its payload equals an
+    uninterrupted run's."""
+    import json
+
+    orig = port_wsi.InferManager._run_tile_pipelined
+    calls = {"n": 0}
+
+    def interrupting(self, *args, **kwargs):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise KeyboardInterrupt("simulated preemption")
+        return orig(self, *args, **kwargs)
+
+    monkeypatch.setattr(port_wsi.InferManager, "_run_tile_pipelined",
+                        interrupting)
+    with pytest.raises(KeyboardInterrupt):
+        _port_run(tmp_path, "resume", slide, resident=False)
+    with open(tmp_path / "cache_resume" / "progress.json") as f:
+        meta = json.load(f)
+    assert meta["slide"] == "s" and len(meta["done_tiles"]) == 1
+    assert meta["grid"][4] == 0  # the legacy loop's mark
+
+    counted = {"n": 0}
+
+    def counting(self, *args, **kwargs):
+        counted["n"] += 1
+        return orig(self, *args, **kwargs)
+
+    monkeypatch.setattr(port_wsi.InferManager, "_run_tile_pipelined",
+                        counting)
+    dat, pclass = _port_run(tmp_path, "resume", slide, resident=False)
+    assert counted["n"] == 1  # 2 inference tiles (chunk 480, 504 px wide)
+    assert _payload(dat) == _payload(port_legacy_gpu[0])
+    np.testing.assert_array_equal(pclass, port_legacy_gpu[1])
+
+
+def test_svs_dat_matches_its_converted_pyramid(slide, port_stub, tmp_path,
+                                               monkeypatch):
+    """The stub slide written as a deflate-coded Aperio ``.svs`` (256 px
+    tiles, two levels) through the WSI CLI with its default
+    ``--wsi_file_ext``: its ``.dat`` payload equals the original pyramid's
+    by content (the codec is lossless), and the ``.npy`` pyramid ``python
+    -m cerberus_tpu_torch.convert_slide`` makes of it holds the slide's
+    pixels at every level, so a run on it reads what the original's does.
+    ``chip_smoke.py`` runs a JPEG-coded one and its converted pyramid."""
+    from cerberus_tpu_torch import convert_slide
+
+    from tests.test_tiff_reader import _write_tiff
+
+    plane = np.load(slide / "level_0.npy")
+    svs_dir, npy_dir = tmp_path / "svs", tmp_path / "npy"
+    os.makedirs(svs_dir)
+    _write_tiff(str(svs_dir / "s.svs"), [plane, plane[::2, ::2]],
+                compression=8, tile=256, description="Aperio |MPP = 0.5|")
+    assert convert_slide.main([str(svs_dir / "s.svs"),
+                               str(npy_dir / "s")]) == 0
+    assert sorted(os.listdir(npy_dir / "s")) == [
+        "level_0.npy", "level_1.npy", "level_2.npy", "meta.yml"]
+    for lvl in range(3):
+        np.testing.assert_array_equal(
+            np.load(npy_dir / "s" / ("level_%d.npy" % lvl)),
+            plane[::2 ** lvl, ::2 ** lvl][:400 >> lvl, :504 >> lvl])
+    with open(npy_dir / "s" / "meta.yml") as f:
+        assert yaml.safe_load(f)["mpp"] == 0.5
+    monkeypatch.setattr(port_wsi.InferManager, "run_step", _torch_stub)
+    model_dir = tmp_path / "model"
+    os.makedirs(model_dir)
+    # the stub forward ignores the weights: the port's own seeded ones
+    torch.save({"desc": _port_manager().model.state_dict()},
+               str(model_dir / "weights.tar"))
+    with open(model_dir / "settings.yml", "w") as f:
+        # the stub forward writes the default head order
+        yaml.safe_dump({"dataset_kwargs":
+                        {"req_target_code": dict(DEFAULT_TARGET_CODE)},
+                        "model_kwargs": MODEL_KWARGS}, f, sort_keys=False)
+    out = tmp_path / "out"
+    run_infer_wsi.main(
+        ["--model=%s" % model_dir, "--input_dir=%s" % svs_dir,
+         "--output_dir=%s" % out, "--cache_path=%s/" % (tmp_path / "c"),
+         "--logging_dir=%s" % (tmp_path / "log"), "--batch_size=8",
+         "--patch_input_shape=%d" % IN_SHAPE,
+         "--patch_output_shape=%d" % OUT_SHAPE, "--tile_shape=192",
+         "--ambiguous_size=16"], device="cpu")
+    with open(out / "dat" / "s.dat", "rb") as f:
+        dat = pickle.load(f)
+    assert all(len(dat[t]) > 0 for t in TASKS)
+    assert _payload(dat) == _payload(port_stub[0])
 
 
 @pytest.mark.parametrize("tile_shape", [576, 432])
@@ -437,8 +575,12 @@ def test_cli_discovers_shards_writes_and_skips(tmp_path, monkeypatch):
 
     monkeypatch.setattr(port_wsi.InferManager, "process_single_file", fail)
     run_infer_wsi.main(argv, device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_infer_wsi.main(argv + ["--postproc_backend=cpu"], device="cpu")
+    monkeypatch.undo()
+    monkeypatch.setattr(port_wsi.InferManager, "run_step", _torch_stub)
+    cpu_out = tmp_path / "out_cpu"
+    run_infer_wsi.main([a.replace(str(out), str(cpu_out)) for a in argv]
+                       + ["--postproc_backend=cpu"], device="cpu")
+    assert sorted(os.listdir(cpu_out / "dat")) == ["b.dat"]
 
 
 def test_cli_dense_selects_1168_to_864(tmp_path, monkeypatch):

@@ -7,7 +7,9 @@ state_dict is loaded (DataParallel ``module.`` prefixes stripped), the
 weights are placed on the device once, and one step is bound per output
 shape (valid-region decoding unless ``CERBERUS_VALID_REGION=0`` when the
 step is bound). Without a checkpoint the weights are random, from a seeded
-``torch.Generator``.
+``torch.Generator``. As the JAX manager does, it also takes ``params=``, a
+JAX-layout tree of numpy arrays, in place of a checkpoint; the checkpoint
+may be a torch file or a native msgpack one (``models/convert.load_checkpoint``).
 """
 from __future__ import annotations
 
@@ -16,14 +18,18 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..config import ModelConfig
-from ..models.convert import load_torch_checkpoint
+from ..models.convert import load_checkpoint, state_dict_from_jax_params
 from ..models.net_desc import NetDesc, init_weights
+from ..utils.debug import default_device
 from .steps import make_infer_step
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the card (``cuda``); raises when CUDA is absent."""
-    device = torch.device("cuda" if device is None else device)
+    """``None`` means ``CERBERUS_DEFAULT_DEVICE`` where it is set, else the
+    card (``cuda``); raises when CUDA is absent."""
+    if device is None:
+        device = default_device() or "cuda"
+    device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
@@ -34,7 +40,7 @@ class InferManager:
     def __init__(self, checkpoint_path: Optional[str] = None,
                  decoder_dict: Optional[dict] = None,
                  model_args: Optional[dict] = None,
-                 device=None, **kwargs):
+                 device=None, params: Optional[dict] = None, **kwargs):
         """On the card the forward computes in bf16 and the canvas is f16
         (the JAX package's numerics policy); on the CPU both are f32."""
         self.checkpoint_path = checkpoint_path
@@ -48,10 +54,13 @@ class InferManager:
             setattr(self, variable, value)
         self.cfg = ModelConfig.from_kwargs(self.model_args)
         model = NetDesc(self.cfg)
-        if self.checkpoint_path is None:
+        if params is not None:
+            model.load_state_dict(state_dict_from_jax_params(params),
+                                  strict=True)
+        elif self.checkpoint_path is None:
             init_weights(model, torch.Generator().manual_seed(0))
         else:
-            model.load_state_dict(load_torch_checkpoint(self.checkpoint_path),
+            model.load_state_dict(load_checkpoint(self.checkpoint_path),
                                   strict=True)
         self.model = model.to(self.device).eval()
         self._step_cache: Dict[int, Callable] = {}

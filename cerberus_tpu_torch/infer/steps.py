@@ -15,8 +15,9 @@ The forward is valid-region decoding by default (``models/valid_decode``):
 the towers run on the kept window plus its margin, and where the geometry
 admits no plan the towers run at full size and are cropped.
 ``CERBERUS_VALID_REGION=0`` selects the full towers, as it does for the
-JAX package. The JAX package's width-paired and fused-bank forwards are
-not ported.
+JAX package. ``CERBERUS_DEBUG=1`` (also read when a step is bound) checks
+every head's logits for NaN and Inf. The JAX package's width-paired and
+fused-bank forwards are not ported.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from ..data.patching import make_channel_index_map
 from ..models.layers import center_crop
 from ..models.net_desc import NetDesc
 from ..models.valid_decode import supports_valid_region, valid_head_outputs
+from ..utils.debug import check_finite, debug_mode_requested
 
 
 def pclass_cells(in_size: int, out_size: int) -> int:
@@ -81,16 +83,21 @@ def head_outputs(model: NetDesc, x: torch.Tensor, output_shape: int,
 
 def infer_outputs(model: NetDesc, imgs: torch.Tensor, cfg: ModelConfig,
                   output_shape: int, compute_dtype=torch.float32,
-                  out_dtype=torch.float32,
-                  valid_region: bool = True) -> torch.Tensor:
+                  out_dtype=torch.float32, valid_region: bool = True,
+                  check: bool = False) -> torch.Tensor:
     """uint8 NHWC batch -> (N, output_shape, output_shape, C) canvas
     tensor. ``compute_dtype`` other than f32 runs the forward under
-    autocast (bf16 on the card, as the JAX package computes in bf16)."""
+    autocast (bf16 on the card, as the JAX package computes in bf16).
+    ``check``: raise ``FloatingPointError`` naming a head whose logits hold
+    NaN or Inf."""
     x = imgs.permute(0, 3, 1, 2).float() / 255.0
     with torch.no_grad(), torch.autocast(
             device_type=x.device.type, dtype=compute_dtype,
             enabled=compute_dtype != torch.float32):
         pred = head_outputs(model, x, output_shape, valid_region)
+    if check:
+        for head_code, logits in pred.items():
+            check_finite(head_code, logits)
     return canvas_from_logits(pred, cfg, output_shape, out_dtype)
 
 
@@ -100,11 +107,13 @@ def make_infer_step(model: NetDesc, cfg: ModelConfig, output_shape: int = 144,
     """Bind the step for one output shape: uint8 NHWC batch on the model's
     device -> (N, out, out, C) tensor of ``out_dtype``. Valid-region
     decoding unless ``CERBERUS_VALID_REGION=0`` (read here, as the JAX
-    package's ``make_infer_step`` does)."""
+    package's ``make_infer_step`` does), with the NaN/Inf check where
+    ``CERBERUS_DEBUG`` is set."""
     valid_region = os.environ.get("CERBERUS_VALID_REGION", "1") != "0"
+    check = debug_mode_requested()
 
     def step(imgs: torch.Tensor) -> torch.Tensor:
         return infer_outputs(model, imgs, cfg, output_shape, compute_dtype,
-                             out_dtype, valid_region)
+                             out_dtype, valid_region, check)
 
     return step

@@ -21,11 +21,20 @@ Counterpart of ``cerberus_tpu/infer/tile.py:44-341``, split at one seam:
     ``.mat`` files, overlay, PNG read — is host code that imports cv2 inside
     its functions.
 
+``process_file_list`` (the CLI) runs the JAX engine's cross-file batch
+cache (``cerberus_tpu/infer/tile.py:201-223,269-309``, here
+``cached_canvases``): sorted files are taken until more than
+``CACHE_WINDOWS`` windows are cached, every cached window runs in one
+stream of fixed-size batches (only the cache's last batch is zero-padded),
+each batch gathered on the card from the padded images it spans, and each
+file's canvas is stitched on the card from its own slice of the outputs.
+``process_image`` / ``infer_canvas`` run that cache on one image, which
+gives the per-image batches.
+``tile_backend="fused"`` runs ``infer/fused_tile.run_fused_tile`` per file.
+
 Kept reference quirks: lumen instances survive only inside glands, and
 lumen instances are typed against the gland type map (the previous task's
-upscaled type map). Each image runs its own batches; the JAX engine's
-cross-file batch cache is not ported (the windows are gathered on the card,
-so its C++ patch gather has no use here).
+upscaled type map).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import multiprocessing
 import os
 import pathlib
 from concurrent.futures import ProcessPoolExecutor, as_completed
+from typing import Iterable, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -49,16 +59,30 @@ from .manager import InferManager as BaseInferManager
 # "gpu": families on the card ("tpu" is accepted as an alias); "cpu": the
 # scipy/cv2 oracle families on the host
 POSTPROC_BACKENDS = ("gpu", "tpu", "cpu")
+# "host": the batch cache and a stitch per file; "fused": infer/fused_tile
+TILE_BACKENDS = ("host", "fused")
+# files are cached until more than this many windows are (JAX tile.py:213)
+CACHE_WINDOWS = 256
+
+
+def window_index(tl_list, size: int, device) -> tuple:
+    """(P, 2) top-left (y, x) corners (an array, or a tensor already on
+    ``device``) -> the (ys, xs) advanced index of the P size x size windows
+    of an (H, W, ...) tensor on ``device``."""
+    if not isinstance(tl_list, torch.Tensor):
+        tl_list = torch.from_numpy(np.asarray(tl_list, np.int64))
+    tl = tl_list.to(device)
+    ar = torch.arange(size, device=device)
+    ys = tl[:, 0, None] + ar
+    xs = tl[:, 1, None] + ar
+    return ys[:, :, None], xs[:, None, :]
 
 
 def gather_windows(img: torch.Tensor, tl_list, size: int) -> torch.Tensor:
     """(H, W, C) image tensor + (P, 2) top-left (y, x) corners -> (P, size,
-    size, C) windows, as one gather on the image's device."""
-    ar = torch.arange(size, device=img.device)
-    tl = torch.as_tensor(np.asarray(tl_list, np.int64), device=img.device)
-    ys = tl[:, 0, None] + ar
-    xs = tl[:, 1, None] + ar
-    return img[ys[:, :, None], xs[:, None, :]]
+    size, C) windows, as one gather on the image's device. Corners given as
+    a tensor on that device need no copy (and no stream sync)."""
+    return img[window_index(tl_list, size, img.device)]
 
 
 def _post_process(canvas, postproc_code: dict, postproc_list,
@@ -181,29 +205,82 @@ class InferManager(BaseInferManager):
 
     def infer_canvas(self, img: np.ndarray) -> torch.Tensor:
         """RGB uint8 (H, W, 3) image -> stitched, source-cropped f32
-        (H, W, C) canvas on the device."""
-        in_shape = int(self.patch_input_shape)
-        out_shape = int(self.patch_output_shape)
-        batch_size = int(self.batch_size)
-        padded, patch_info, src_pos = prepare_patching(
-            img, in_shape, out_shape, self.patch_output_overlap)
-        dev_img = torch.from_numpy(np.ascontiguousarray(padded)).to(
-            self.device)
-        in_tl = patch_info[:, 0, 0]
-        outputs = []
-        for start in range(0, len(in_tl), batch_size):
-            batch = gather_windows(dev_img, in_tl[start:start + batch_size],
-                                   in_shape)
-            valid = batch.shape[0]
-            if valid < batch_size:
-                batch = torch.cat([batch, batch.new_zeros(
-                    (batch_size - valid, *batch.shape[1:]))])
-            outputs.append(self.run_step(batch, out_shape)[:valid])
-        canvas = stitch_canvas(torch.cat(outputs), patch_info[:, 1, 0],
-                               padded.shape[:2],
+        (H, W, C) canvas on the device, from this image's own batches (the
+        batch cache over this one image)."""
+        return next(self.cached_canvases([(None, img)]))[2]
+
+    def step_padded(self, batch: torch.Tensor) -> torch.Tensor:
+        """The step on ``batch`` zero-padded to the batch size; the padding
+        rows' outputs are dropped."""
+        valid, batch_size = batch.shape[0], int(self.batch_size)
+        if valid < batch_size:
+            batch = torch.cat([batch, batch.new_zeros(
+                (batch_size - valid, *batch.shape[1:]))])
+        return self.run_step(batch, int(self.patch_output_shape))[:valid]
+
+    def _stitch(self, outputs, patch_info, padded_hw, src_pos, src_hw):
+        canvas = stitch_canvas(outputs, patch_info[:, 1, 0], padded_hw,
                                self.patch_output_overlap != 0)
-        h, w = img.shape[:2]
-        return canvas[src_pos[0]:src_pos[0] + h, src_pos[1]:src_pos[1] + w]
+        return canvas[src_pos[0]:src_pos[0] + src_hw[0],
+                      src_pos[1]:src_pos[1] + src_hw[1]]
+
+    def cached_canvases(self, items: Iterable[Tuple[object, np.ndarray]]
+                        ) -> Iterator[Tuple[object, np.ndarray,
+                                            torch.Tensor]]:
+        """The cross-file batch cache over ``items``, (key, RGB uint8
+        image) pairs read lazily in order: yields (key, image, stitched
+        source-cropped f32 device canvas) per image, in order.
+
+        Images are taken until more than ``CACHE_WINDOWS`` windows are
+        cached; the cache's windows, file after file, run as one stream of
+        fixed-size batches, each gathered on the card from the padded
+        images it spans (the JAX ``_run_cached`` job order). Only the
+        cache's last batch is zero-padded. The outputs stay in the step's
+        dtype (f16 on the card) until each image's canvas is stitched."""
+        in_shape = int(self.patch_input_shape)
+        batch_size = int(self.batch_size)
+        items = iter(items)
+        while True:
+            cache: List[tuple] = []
+            n_windows = 0
+            for key, img in items:
+                padded, patch_info, src_pos = prepare_patching(
+                    img, in_shape, int(self.patch_output_shape),
+                    self.patch_output_overlap)
+                dev_img = torch.from_numpy(np.ascontiguousarray(padded)).to(
+                    self.device)
+                # the input top-lefts, uploaded once: no copy in the loop
+                in_tl = torch.from_numpy(
+                    patch_info[:, 0, 0].astype(np.int64)).to(self.device)
+                cache.append((key, img, dev_img, in_tl, patch_info, src_pos))
+                n_windows += len(patch_info)
+                if n_windows > CACHE_WINDOWS:
+                    break
+            if not cache:
+                return
+            bounds = np.cumsum([0] + [len(c[4]) for c in cache])
+            outputs: List[list] = [[] for _ in cache]
+            for start in range(0, n_windows, batch_size):
+                end = min(start + batch_size, n_windows)
+                spans = [(f, max(start, bounds[f]) - bounds[f],
+                          min(end, bounds[f + 1]) - bounds[f])
+                         for f in range(len(cache))
+                         if bounds[f] < end and start < bounds[f + 1]]
+                parts = [gather_windows(cache[f][2], cache[f][3][lo:hi],
+                                        in_shape) for f, lo, hi in spans]
+                out = self.step_padded(
+                    parts[0] if len(parts) == 1 else torch.cat(parts))
+                offset = 0
+                for f, lo, hi in spans:
+                    outputs[f].append(out[offset:offset + hi - lo])
+                    offset += hi - lo
+            for f, (key, img, dev_img, _, patch_info, src_pos) in enumerate(
+                    cache):
+                canvas = self._stitch(torch.cat(outputs[f]), patch_info,
+                                      dev_img.shape[:2], src_pos,
+                                      img.shape[:2])
+                outputs[f] = None
+                yield key, img, canvas
 
     def process_image(self, img: np.ndarray):
         """RGB uint8 (H, W, 3) image -> (inst_map_dict, type_map_dict,
@@ -211,6 +288,24 @@ class InferManager(BaseInferManager):
         return post_process_canvas(self.infer_canvas(img), self.decoder_dict,
                                    self.postproc_list,
                                    self.cfg.active_decoder_kwargs)
+
+    def _files_to_do(self) -> list:
+        """Sorted input images missing an output (skip-if-done on the
+        directories actually written, ``pclass_mat`` for Patch-Class)."""
+        todo = []
+        for file_path in recur_find_ext(self.input_dir, [".png", ".jpg"]):
+            base_name = pathlib.Path(file_path).stem
+            missing = sum(
+                not os.path.exists("%s/%s_mat/%s.mat" % (
+                    self.output_dir,
+                    "pclass" if t == "patch-class" else t, base_name))
+                for t in self.postproc_list
+                if (t.capitalize() + "-INST" in self.decoder_dict
+                    or (t == "patch-class"
+                        and "Patch-Class" in self.decoder_dict)))
+            if missing > 0:
+                todo.append(file_path)
+        return sorted(todo)
 
     def process_file_list(self, run_args: dict) -> None:
         import cv2
@@ -223,26 +318,25 @@ class InferManager(BaseInferManager):
         if backend not in POSTPROC_BACKENDS:
             raise ValueError("postproc_backend=%r: use one of %s"
                              % (backend, POSTPROC_BACKENDS))
-        if getattr(self, "tile_backend", "host") != "host":
-            raise NotImplementedError("tile_backend=%r is not ported yet"
-                                      % self.tile_backend)
+        tile_backend = getattr(self, "tile_backend", "host")
+        if tile_backend not in TILE_BACKENDS:
+            raise ValueError("tile_backend=%r: use one of %s"
+                             % (tile_backend, TILE_BACKENDS))
         viz_info = load_viz_info()
-
-        file_path_list = []
-        for file_path in recur_find_ext(self.input_dir, [".png", ".jpg"]):
-            base_name = pathlib.Path(file_path).stem
-            # skip-if-done on the directories actually written (pclass_mat)
-            missing = sum(
-                not os.path.exists("%s/%s_mat/%s.mat" % (
-                    self.output_dir,
-                    "pclass" if t == "patch-class" else t, base_name))
-                for t in self.postproc_list
-                if (t.capitalize() + "-INST" in self.decoder_dict
-                    or (t == "patch-class"
-                        and "Patch-Class" in self.decoder_dict)))
-            if missing > 0:
-                file_path_list.append(file_path)
+        file_path_list = self._files_to_do()
         assert len(file_path_list) > 0, "Not Detected Any Files From Path"
+
+        def read(file_path):
+            img = cv2.cvtColor(cv2.imread(file_path), cv2.COLOR_BGR2RGB)
+            return pathlib.Path(file_path).stem, img
+
+        if tile_backend == "fused":
+            from .fused_tile import run_fused_tile
+
+            canvases = ((name, img, run_fused_tile(self, img))
+                        for name, img in map(read, file_path_list))
+        else:
+            canvases = self.cached_canvases(map(read, file_path_list))
 
         pool = None
         if backend == "cpu" and int(getattr(self, "nr_post_proc_workers", 0)
@@ -252,11 +346,11 @@ class InferManager(BaseInferManager):
                 mp_context=multiprocessing.get_context("spawn"))
         try:
             futures = {}
-            for file_path in sorted(file_path_list):
-                img = cv2.cvtColor(cv2.imread(file_path), cv2.COLOR_BGR2RGB)
-                name = pathlib.Path(file_path).stem
+            for name, img, canvas in canvases:
                 if backend != "cpu":
-                    inst_maps, type_maps, pclass_map = self.process_image(img)
+                    inst_maps, type_maps, pclass_map = post_process_canvas(
+                        canvas, self.decoder_dict, self.postproc_list,
+                        self.cfg.active_decoder_kwargs)
                     info = instance_info(inst_maps, type_maps,
                                          self.postproc_list)
                     save_results(self.output_dir, name, img, inst_maps, info,
@@ -264,9 +358,8 @@ class InferManager(BaseInferManager):
                     log_info("Done Assembling %s" % name)
                     continue
                 # one copy of the stitched canvas to the host per image
-                args = (self.infer_canvas(img).cpu().numpy(),
-                        self.decoder_dict, self.postproc_list,
-                        self.cfg.active_decoder_kwargs)
+                args = (canvas.cpu().numpy(), self.decoder_dict,
+                        self.postproc_list, self.cfg.active_decoder_kwargs)
                 if pool is None:
                     save_results(self.output_dir, name, img,
                                  *_host_postproc_and_info(*args),

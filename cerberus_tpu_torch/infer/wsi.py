@@ -61,6 +61,7 @@ from ..ops.gpu_postproc import GPU_POSTPROC_FUNC_DICT, pad_to_512
 from ..ops.postproc import POSTPROC_FUNC_DICT, get_inst_info_dict
 from ..utils import mkdir, rm_n_mkdir, save_json
 from ..utils.geometry import get_bounding_box
+from ..utils.profiling import maybe_profile, trace_span
 from ..wsi.coords import (
     assign_patches_to_tiles,
     filter_coordinates,
@@ -894,8 +895,10 @@ class InferManager(BaseInferManager):
                 if not os.path.exists(
                         self.output_dir + "/dat/%s.dat" % wsi_basename):
                     self.logger.info(f"Processing {wsi_basename} ...")
-                    with torch.profiler.record_function(
-                            f"wsi/{wsi_basename}"):
+                    # CERBERUS_PROFILE_DIR=<dir> writes a Chrome trace per
+                    # slide; the span goes to the per-slide log either way
+                    with maybe_profile(wsi_basename), trace_span(
+                            f"wsi/{wsi_basename}", self.logger):
                         self.process_single_file(
                             ioconfig, ioconfig_pp, wsi_path, mask_path,
                             wsi_basename, self.output_dir)

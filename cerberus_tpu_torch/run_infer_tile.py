@@ -22,7 +22,7 @@ Options:
   --patch_output_shape=<n>    Shape of network output- Assume square shape. [default: 144]
   --dense                     Dense inference: 1168->864 windows (~3x fewer FLOPs per output px at the same 152 px margin). Overrides the patch shape flags; use --batch_size=16 or less (windows are 6.8x larger)
   --postproc_backend=<str>    Instance post-processing backend: gpu (the CUDA families on the card; tpu is an alias) or cpu (the scipy/cv2 families on the host). The default deliberately differs from the JAX CLI's cpu: --postproc_backend=cpu reproduces the reference's run. [default: gpu]
-  --tile_backend=<str>        Tile engine: host (only host is ported). [default: host]
+  --tile_backend=<str>        Tile engine: host (windows of several files batched together, a stitch per file) or fused (each file's batches written into one device canvas as they come out; needs overlap 0). [default: host]
 
 Run as ``python -m cerberus_tpu_torch.run_infer_tile``. The flags are those
 of the JAX package's ``run_infer_tile.py``. ``--postproc_backend=cpu``
@@ -30,6 +30,9 @@ of the JAX package's ``run_infer_tile.py``. ``--postproc_backend=cpu``
 the host and runs the scipy/cv2 families there, in a pool of
 ``--nr_post_proc_workers`` processes (0: in this process).
 ``--nr_inference_workers`` is accepted for compatibility.
+``CERBERUS_DEFAULT_DEVICE=cpu`` runs it without a card. The model
+directory's ``weights.tar`` may be a torch checkpoint or the JAX package's
+native msgpack one.
 """
 from __future__ import annotations
 
@@ -38,15 +41,19 @@ import os
 from .config import DEFAULT_TARGET_LIST, load_settings
 from .utils import rm_n_mkdir
 from .utils.cli import docopt
+from .utils.debug import configure_from_env, default_device
 
 
 def main(argv=None, device=None) -> None:
     """Parse ``argv`` and run tile inference. ``device`` overrides
-    ``--gpu`` (the tests pass ``device="cpu"``)."""
+    ``--gpu`` (the tests pass ``device="cpu"``), as
+    ``CERBERUS_DEFAULT_DEVICE`` does when ``device`` is None."""
+    configure_from_env()
     args = docopt(__doc__, argv=argv,
                   version="CoBi Gland Inference (cerberus-tpu-torch)")
     if device is None:
-        device = "cuda:%d" % int(str(args["--gpu"]).split(",")[0])
+        device = default_device() or "cuda:%d" % int(
+            str(args["--gpu"]).split(",")[0])
 
     output_dir = args["--output_dir"]
     if not os.path.exists(output_dir):

@@ -62,6 +62,7 @@ import os
 from .config import DEFAULT_TARGET_LIST, load_settings
 from .utils import rm_n_mkdir
 from .utils.cli import docopt
+from .utils.debug import configure_from_env, default_device
 
 
 def slide_lists(input_dir, wsi_file_ext, msk_dir, bulk_idx: int, step: int):
@@ -85,11 +86,14 @@ def slide_lists(input_dir, wsi_file_ext, msk_dir, bulk_idx: int, step: int):
 
 def main(argv=None, device=None) -> None:
     """Parse ``argv`` and run WSI inference. ``device`` overrides ``--gpu``
-    (the tests pass ``device="cpu"``)."""
+    (the tests pass ``device="cpu"``), as ``CERBERUS_DEFAULT_DEVICE`` does
+    when ``device`` is None."""
+    configure_from_env()
     args = docopt(__doc__, argv=argv,
                   version="CoBi Gland Inference (cerberus-tpu-torch)")
     if device is None:
-        device = "cuda:%d" % int(str(args["--gpu"]).split(",")[0])
+        device = default_device() or "cuda:%d" % int(
+            str(args["--gpu"]).split(",")[0])
 
     output_dir = args["--output_dir"]
     logging_dir = args["--logging_dir"]

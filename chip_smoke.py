@@ -105,15 +105,49 @@ Phases, each printing JSON lines:
      lumen instances matched by a centroid within 3 px, printed for
      nuclei).
 
+  9. serving (after ``forward_profile``, on the main path's model):
+     ``import_probe`` (whether sklearn, msgpack, flax and joblib are
+     installed; none is imported); ``native_checkpoint``: the model written
+     by the port's msgpack encoder as a native ``weights.tar`` and loaded
+     through ``InferManager``, its state dict and the main path's canvases
+     equal to the torch checkpoint's; ``tile_cli_cache``: the tile CLI on a
+     directory of ten images (the main path's three and seven of 256^2 to
+     600^2, so the cross-file batch cache mixes files) at batch 10 and
+     ``--dense`` batch 16, with Mpx/s, ms per image and the zero-padded
+     share of the windows for the CLI, the batch cache and the per-image
+     path timed in alternating turns in the same call (the canvases
+     alone and the whole path, on the main path's managers), the kernel
+     families equal to the plain ones on every cached canvas, the ``.mat``
+     files' maps at ``--batch_size=1`` equal to the per-image path's on
+     the seven small images, and at batch 10 the canvas difference,
+     instance counts and foreground IoU against the per-image path
+     printed only; ``tile_cli_fused``: ``--tile_backend=fused`` at batch
+     10, its canvases byte-equal to ``infer_canvas``'s (timed in turns
+     with it) and its ``.mat`` maps to the per-image path's; ``predictor``: ``CerberusPredictor.from_model_dir``
+     at batch 10, ``predict_tile`` / ``predict_raw`` byte-equal to
+     ``process_image`` / ``infer_canvas`` and two threads to the serial
+     results, ms per 1000^2 tile; ``patch_eval``: the ``run_eval_patch`` CLI
+     on 512 seeded pickle-written 160^2 patches in 9 classes (the model's
+     Patch-Class head scaled 0.01x so its softmax is not saturated, then
+     standardised per class on the patches so that at least two
+     classes are predicted), patches/s,
+     its metrics equal to a recomputation from the step's probabilities
+     and to a plain per-threshold numpy version, and the card's f32
+     probabilities on 32 patches within 1e-3 relative of the CPU forward.
+     The cache, fused and predictor runs reset the launch counts just
+     before and read them just after; every kernel must launch in each.
+
 The second-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without CUDA, or without the package beside this script, it exits 1 and
 prints no result. It imports nothing of JAX or cerberus_tpu; cv2 and
-PyYAML are imported only by the WSI CLI's host side (phases 6 and 8) and
+PyYAML are imported only by the CLIs' host side (phases 6, 8 and 9) and
 the readers phase.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -544,6 +578,20 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
+@contextlib.contextmanager
+def tf32_off(torch):
+    """cuDNN's and cuBLAS's TF32 off, both restored as they were."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 def forward_check(torch, model, hw: int, out: int, batch: int = 2) -> dict:
     """One f32 batch (TF32 off) through ``model`` on the card, full towers
     and valid-region, and its copy on the CPU (full towers): per head, the
@@ -562,16 +610,11 @@ def forward_check(torch, model, hw: int, out: int, batch: int = 2) -> dict:
     if plan is None:
         raise AssertionError("no valid-region plan for %d->%d" % (hw, out))
     dev = next(model.parameters()).device
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.no_grad():
-            full = {k: v.cpu() for k, v in model(x.to(dev)).items()}
-            valid = {k: v.cpu() for k, v in valid_head_outputs(
-                model, x.to(dev), plan).items()}
-            cpu = copy.deepcopy(model).cpu()(x)
-    finally:
-        torch.backends.cudnn.allow_tf32 = True
+    with tf32_off(torch), torch.no_grad():
+        full = {k: v.cpu() for k, v in model(x.to(dev)).items()}
+        valid = {k: v.cpu() for k, v in valid_head_outputs(
+            model, x.to(dev), plan).items()}
+        cpu = copy.deepcopy(model).cpu()(x)
 
     def crop(t, head):
         return t if head == "Patch-Class" else center_crop(t, out, out)
@@ -1650,6 +1693,671 @@ def phase_wsi_cli_cpu(torch, legacy_run):
                              + "; ".join(bad))
 
 
+# --------------------------------------------------------------- serving
+# the tile_cli phases' seven small images (hw, seed), beside the main
+# path's three
+SERVE_SMALL = (((256, 256), 51), ((320, 400), 52), ((384, 300), 53),
+               ((450, 450), 54), ((512, 600), 55), ((600, 520), 56),
+               ((300, 600), 57))
+MAT_TASKS = ("gland", "lumen", "nuclei", "pclass")
+PATCHES = (512, 9, 160)  # patch_eval: count, classes, side
+PATCH_REL_TOL = 1e-3  # patch_eval: card f32 probabilities vs the CPU's
+# patch_eval: the Patch-Class head's last conv scaled so its random-weight
+# logits (hundreds) leave the softmax unsaturated and the classes apart
+SYNTH_PCLASS_SCALE = 0.01
+PCLASS_MIN_PREDICTED = 2  # patch_eval: classes the calibrated head predicts
+
+
+def serve_images():
+    """The tile_cli phases' directory, by file name: the main path's three
+    images and seven small ones."""
+    images = {"main%d" % i: img for i, img in enumerate(main_path_images())}
+    for hw, seed in SERVE_SMALL:
+        images["small%d" % seed] = synthetic_image(hw, seed)
+    return images
+
+
+def load_model_dir(torch, path):
+    """The tile ``InferManager`` over a model directory, as the CLI loads
+    it (448->144, batch 10)."""
+    from cerberus_tpu_torch.config import load_settings
+    from cerberus_tpu_torch.infer.tile import InferManager
+
+    paramset = load_settings(path)
+    return InferManager(
+        checkpoint_path=os.path.join(path, "weights.tar"),
+        decoder_dict=paramset.req_target_code,
+        model_args=paramset.model_kwargs, device="cuda", batch_size=10,
+        patch_input_shape=448, patch_output_shape=144)
+
+
+def phase_native_checkpoint(torch, manager):
+    """The smoke model written by the port's msgpack encoder as a native
+    ``weights.tar`` in a second model directory and loaded through
+    ``InferManager``: its state dict must equal the torch-tar one's, and
+    the main path's canvases must be byte-equal."""
+    from cerberus_tpu_torch.models.convert import (
+        jax_params_from_state_dict, save_native_checkpoint)
+    from cerberus_tpu_torch.ops import cuda_build
+
+    path = os.path.join(cuda_build.BUILD_DIR, "smoke_native_model")
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        write_model(torch, path, True)
+        ckpt = os.path.join(path, "weights.tar")
+        params = jax_params_from_state_dict(
+            torch.load(ckpt, map_location="cpu")["desc"])
+        t0 = time.perf_counter()
+        save_native_checkpoint(ckpt, params)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(ckpt)
+        with open(ckpt, "rb") as handle:
+            native_file = handle.read(2) != b"PK"
+        t0 = time.perf_counter()
+        native = load_model_dir(torch, path)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    ref = manager.model.state_dict()
+    got = native.model.state_dict()
+    sd_equal = set(got) == set(ref) and all(
+        torch.equal(got[k], ref[k]) for k in ref)
+    canvases_equal = [bool(torch.equal(native.infer_canvas(img),
+                                       manager.infer_canvas(img)))
+                      for img in main_path_images()]
+    emit({"phase": "native_checkpoint", "layers": len(params),
+          "bytes": size, "native_file": native_file, "write_s": write_s,
+          "load_s": load_s, "state_dict_equal": sd_equal,
+          "main_path_canvases_byte_equal": canvases_equal})
+    if not (native_file and sd_equal and all(canvases_equal)):
+        raise AssertionError("native checkpoint: state dict or canvases "
+                             "differ from the torch checkpoint's")
+
+
+def run_tile_cli(torch, argv):
+    """``python -m cerberus_tpu_torch.run_infer_tile --gpu=0`` (its
+    ``main``, in this process), launch counts reset just before and read
+    just after. Returns (seconds, launches)."""
+    from cerberus_tpu_torch import run_infer_tile
+    from cerberus_tpu_torch.ops import cuda_build
+
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_infer_tile.main(["--gpu=0", *argv])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, dict(cuda_build.launch_counts)
+
+
+def read_mats(out_dir, names):
+    import scipy.io as sio
+
+    return {(name, task): {k: v for k, v in sio.loadmat(os.path.join(
+        out_dir, "%s_mat" % task, name + ".mat")).items()
+        if not k.startswith("__")} for name in names for task in MAT_TASKS}
+
+
+def mats_equal_maps(mats, names, results) -> bool:
+    """The ``.mat`` files' maps (``inst_map``, ``type_map``, ``pclass``)
+    against (inst_map_dict, type_map_dict, pclass_map) label maps per
+    image, in ``names`` order (the ``type`` and ``id`` vectors are
+    functions of these maps)."""
+    for name, (inst, types, pclass) in zip(names, results):
+        for task, mat_task in (("Gland", "gland"), ("Lumen", "lumen"),
+                               ("Nuclei", "nuclei")):
+            mat = mats[(name, mat_task)]
+            if not np.array_equal(mat["inst_map"], inst[task]) or (
+                    ("type_map" in mat) != (types[task] is not None)) or (
+                    types[task] is not None
+                    and not np.array_equal(mat["type_map"], types[task])):
+                return False
+        if not np.array_equal(mats[(name, "pclass")]["pclass"], pclass):
+            return False
+    return True
+
+
+def windows_ran(manager, images, cached: bool):
+    """(windows of the images, windows the step ran: the per-image path
+    pads each image's last batch, the cache each cache's last batch)."""
+    from cerberus_tpu_torch.data.patching import prepare_patching
+    from cerberus_tpu_torch.infer.tile import CACHE_WINDOWS
+
+    batch = int(manager.batch_size)
+    counts = [len(prepare_patching(img, int(manager.patch_input_shape),
+                                   int(manager.patch_output_shape))[1])
+              for img in images.values()]
+    groups, run = [], 0
+    for n in counts:
+        if not cached:
+            groups.append(n)
+            continue
+        run += n
+        if run > CACHE_WINDOWS:
+            groups.append(run)
+            run = 0
+    if run:
+        groups.append(run)
+    return sum(counts), sum(-(-g // batch) * batch for g in groups)
+
+
+def time_tile_paths(torch, manager, images, canvas_order, full_order):
+    """The per-image path and the batch cache on the same in-memory images,
+    in the turns of ``canvas_order`` (the canvases alone: per image
+    ``infer_canvas``, the cache ``cached_canvases``) and then of
+    ``full_order`` (the label maps: ``process_image`` per image, the cache's
+    canvases through ``post_process_canvas``). Returns the lines, each
+    path's canvases from its last canvas turn, and its label maps."""
+    from cerberus_tpu_torch.infer.tile import post_process_canvas
+
+    items = list(images.items())
+    px = sum(i.shape[0] * i.shape[1] for i in images.values())
+    args = (manager.decoder_dict, manager.postproc_list,
+            manager.cfg.active_decoder_kwargs)
+
+    def canvases(path):
+        if path == "cache":
+            return {n: c for n, _, c in manager.cached_canvases(items)}
+        return {n: manager.infer_canvas(img) for n, img in items}
+
+    def label_maps(path):
+        if path == "cache":
+            return [post_process_canvas(c, *args)
+                    for _, _, c in manager.cached_canvases(items)]
+        return [manager.process_image(img) for _, img in items]
+
+    # warm-up on two images (the managers ran the main path already)
+    list(manager.cached_canvases(items[:2]))
+    for _, img in items[:2]:
+        manager.infer_canvas(img)
+    torch.cuda.synchronize()
+    line, outs = {}, {}
+    for what, order, fn in (("canvas", canvas_order, canvases),
+                            ("full", full_order, label_maps)):
+        turns = []  # (path, seconds) in the order run
+        for path in order:
+            t0 = time.perf_counter()
+            outs[what, path] = fn(path)
+            torch.cuda.synchronize()
+            turns.append((path, time.perf_counter() - t0))
+        seconds = {path: [t for p, t in turns if p == path]
+                   for path in ("per_image", "cache") if path in order}
+        for path, secs in seconds.items():
+            n_win, ran = windows_ran(manager, images, path == "cache")
+            mid = statistics.median(secs)
+            entry = line.setdefault(path, {
+                "windows": n_win, "windows_ran": ran,
+                "zero_padded_share": (ran - n_win) / ran})
+            entry[what] = {"seconds": secs, "median_s": mid,
+                           "output_mpx_per_s": px / mid / 1e6,
+                           "ms_per_image": mid / len(items) * 1e3}
+        if len(seconds) == 2:
+            # the speed ratio of the medians, and the A/B pairs (turns 2i
+            # and 2i + 1, one of each path) that the cache won
+            pairs = [dict(turns[i:i + 2]) for i in range(0, len(turns), 2)]
+            line["%s_cache_over_per_image" % what] = (
+                statistics.median(seconds["per_image"])
+                / statistics.median(seconds["cache"]))
+            line["%s_cache_faster_pairs" % what] = [
+                sum(p["cache"] < p["per_image"] for p in pairs), len(pairs)]
+    return line, outs
+
+
+def families_on_cached_canvases(torch, manager, canvases):
+    """The kernel families against the plain families on every canvas the
+    batch cache stitched (``canvases``, by name), byte for byte."""
+    from cerberus_tpu_torch.infer.tile import post_process_canvas
+    from cerberus_tpu_torch.ops.device_postproc import KERNELS, PLAIN
+
+    args = (manager.decoder_dict, manager.postproc_list,
+            manager.cfg.active_decoder_kwargs)
+    for name, canvas in canvases.items():
+        got = post_process_canvas(canvas, *args, impl=KERNELS)
+        ref = post_process_canvas(canvas, *args, impl=PLAIN)
+        for part, ref_part in zip(got, ref):
+            same = (all(np.array_equal(part[t], ref_part[t])
+                        for t in ref_part) if isinstance(ref_part, dict)
+                    else np.array_equal(part, ref_part))
+            if not same:
+                raise AssertionError("%s: kernel families differ from the "
+                                     "plain families on the cached canvas"
+                                     % name)
+
+
+def batch_effect(outs):
+    """Print only: the cache's batch-10 canvases and label maps against the
+    per-image path's (the card's batch-position effect)."""
+    cached, per_image = outs["canvas", "cache"], outs["canvas", "per_image"]
+    canvas_max = {name: float((cached[name].float()
+                               - per_image[name].float()).abs().max())
+                  for name in per_image}
+    counts, iou = {}, {}
+    for (inst_c, _, _), (inst_p, _, _) in zip(outs["full", "cache"],
+                                             outs["full", "per_image"]):
+        for task in inst_p:
+            counts.setdefault(task, []).append(
+                [len(np.unique(inst_c[task][inst_c[task] > 0])),
+                 len(np.unique(inst_p[task][inst_p[task] > 0]))])
+            a, b = inst_c[task] > 0, inst_p[task] > 0
+            union = int((a | b).sum())
+            iou.setdefault(task, []).append(
+                int((a & b).sum()) / union if union else 1.0)
+    return {"canvas_max_abs": canvas_max,
+            "instances_cache_vs_per_image": counts, "fg_iou": iou}
+
+
+def check_launches(phase, launches):
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError("%s: kernel %s was not launched"
+                                 % (phase, name))
+
+
+# tile_cli_cache: turns (per image = A, cache = B) of the canvases alone
+# and of the whole path: windowed ABBA x 3 each (six A/B pairs, to resolve a
+# 10 % difference on a host whose turns spread by 10-20 %); dense one each
+# (the paths differ several-fold)
+TILE_TURNS = {"windowed": (("per_image", "cache", "cache", "per_image") * 3,
+                           ("per_image", "cache", "cache", "per_image") * 3),
+              "dense": (("cache",), ("per_image", "cache"))}
+
+
+def phase_tile_cli_cache(torch, work, model_dir, images, managers):
+    """The tile CLI's ``main`` on a directory of ten images (the main
+    path's three and seven small ones, so a cache mixes files) at
+    ``--batch_size=10`` and ``--dense --batch_size=16``, timed beside the
+    per-image path (``TILE_TURNS``) on ``managers`` (the main path's, one
+    per geometry, the smoke model's weights); the kernel families against
+    the plain families on every cached canvas; at ``--batch_size=1`` the
+    ``.mat`` files' maps of the seven small images against the per-image
+    path's; at batch 10 the cache's maps against the per-image path's,
+    printed only. Returns the windowed run's launches, CLI seconds and
+    per-image label maps."""
+    line = {"images": {n: list(i.shape[:2]) for n, i in images.items()}}
+    argv = ["--model=%s" % model_dir]
+    steps = {}  # seconds of each step of this phase
+
+    def mark(step, t0):
+        steps[step] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    for name, flags in (("windowed", ["--batch_size=10"]),
+                        ("dense", ["--dense", "--batch_size=16"])):
+        manager = managers[name]
+        out = os.path.join(work, "out_" + name)
+        t0 = time.perf_counter()
+        seconds, run_launches = run_tile_cli(torch, argv + [
+            "--input_dir=%s" % os.path.join(work, "input"),
+            "--output_dir=%s" % out, *flags])
+        check_launches("tile_cli_cache (%s)" % name, run_launches)
+        t0 = mark(name + "_cli", t0)
+        paths, outs = time_tile_paths(torch, manager, images,
+                                      *TILE_TURNS[name])
+        t0 = mark(name + "_turns", t0)
+        families_on_cached_canvases(torch, manager, outs["canvas", "cache"])
+        t0 = mark(name + "_families_vs_plain", t0)
+        px = sum(i.shape[0] * i.shape[1] for i in images.values())
+        line[name] = {"patch": [int(manager.patch_input_shape),
+                                int(manager.patch_output_shape)],
+                      "batch": int(manager.batch_size),
+                      "cli_seconds": seconds,
+                      "cli_output_mpx_per_s": px / seconds / 1e6,
+                      "cli_ms_per_image": seconds / len(images) * 1e3,
+                      "cli_launches": run_launches, **paths,
+                      "families_vs_plain": "byte_equal"}
+        if name == "windowed":
+            windowed = {"launches": run_launches, "cli_seconds": seconds,
+                        "per_image_maps": outs["full", "per_image"]}
+            line[name]["batch_effect"] = batch_effect(outs)
+            line[name]["mats_equal_per_image"] = mats_equal_maps(
+                read_mats(out, images), images, outs["full", "per_image"])
+            t0 = mark(name + "_batch_effect_and_mats", t0)
+        del outs
+        torch.cuda.empty_cache()
+    # at batch 1 every window runs alone on both paths; the seven small
+    # images still span caches that mix files
+    small = {n: img for n, img in images.items() if n.startswith("small")}
+    out = os.path.join(work, "out_b1")
+    t0 = time.perf_counter()
+    run_tile_cli(torch, argv + [
+        "--input_dir=%s" % os.path.join(work, "input_small"),
+        "--output_dir=%s" % out, "--batch_size=1"])
+    t0 = mark("batch1_cli", t0)
+    manager = managers["windowed"]
+    manager.batch_size = 1
+    try:
+        per_image = [manager.process_image(img) for img in small.values()]
+    finally:
+        manager.batch_size = 10
+    line["batch1_images"] = list(small)
+    line["batch1_mats_equal_per_image"] = mats_equal_maps(
+        read_mats(out, small), small, per_image)
+    mark("batch1_per_image", t0)
+    emit({"phase": "tile_cli_cache", **line, "step_seconds": steps})
+    if not line["batch1_mats_equal_per_image"]:
+        raise AssertionError("tile_cli_cache: at batch 1 the cache's .mat "
+                             "files differ from the per-image path's")
+    return windowed
+
+
+def phase_tile_cli_fused(torch, work, model_dir, images, manager, windowed):
+    """``--tile_backend=fused`` at batch 10 on the same directory: its
+    ``.mat`` files' maps against the per-image path's, and on ``manager``
+    its canvases against the host path's (``infer_canvas``) byte for byte,
+    timed in turns with it (fused, host, host, fused, twice). Returns the
+    CLI run's launches."""
+    from cerberus_tpu_torch.infer.fused_tile import run_fused_tile
+
+    out = os.path.join(work, "out_fused")
+    seconds, launches = run_tile_cli(torch, [
+        "--model=%s" % model_dir, "--input_dir=%s" % os.path.join(
+            work, "input"), "--output_dir=%s" % out, "--batch_size=10",
+        "--tile_backend=fused"])
+    check_launches("tile_cli_fused", launches)
+    mats_ok = mats_equal_maps(read_mats(out, images), images,
+                              windowed["per_image_maps"])
+    paths = {"fused": lambda img: run_fused_tile(manager, img),
+             "host": manager.infer_canvas}
+    paths["fused"](images["main0"])  # warm-up
+    ms, got = {"fused": [], "host": []}, {}
+    for path in ("fused", "host", "host", "fused") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[path] = {n: paths[path](img) for n, img in images.items()}
+        torch.cuda.synchronize()
+        ms[path].append((time.perf_counter() - t0) * 1e3)
+    # A/B pairs (turns 2i and 2i + 1) that the fused backend won
+    fused_won = sum(f < h for f, h in zip(ms["fused"], ms["host"]))
+    equal = {n: bool(torch.equal(got["fused"][n], c))
+             for n, c in got["host"].items()}
+    px = sum(i.shape[0] * i.shape[1] for i in images.values())
+    emit({"phase": "tile_cli_fused", "batch": 10, "cli_seconds": seconds,
+          "cli_output_mpx_per_s": px / seconds / 1e6,
+          "host_cli_seconds": windowed["cli_seconds"], "launches": launches,
+          "mats_equal_per_image": mats_ok, "canvases_byte_equal": equal,
+          "canvas_ms_ten_images": ms,
+          "fused_faster_pairs": [fused_won, len(ms["fused"])]})
+    if not (mats_ok and all(equal.values())):
+        raise AssertionError("tile_cli_fused: canvases or .mat files differ "
+                             "from the host path's")
+    return launches
+
+
+def phase_predictor(torch, model_dir, manager):
+    """``CerberusPredictor.from_model_dir`` on the smoke model (batch 10):
+    ``predict_tile`` label maps and ``predict_raw`` canvases against
+    ``manager``'s ``process_image`` / ``infer_canvas`` at batch 10, byte for
+    byte, and two
+    threads against the serial results. Returns the launches of the serial
+    ``predict_tile`` calls."""
+    import threading
+
+    from cerberus_tpu_torch.ops import cuda_build
+    from cerberus_tpu_torch.predictor import CerberusPredictor
+
+    predictor = CerberusPredictor.from_model_dir(model_dir, batch_size=10)
+    images = main_path_images()
+    predictor.predict_tile(images[0])  # warm-up
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    serial, ms = [], []
+    for img in images:
+        t0 = time.perf_counter()
+        serial.append(predictor.predict_tile(img))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(cuda_build.launch_counts)
+    check_launches("predictor", launches)
+    tasks = ("Gland", "Lumen", "Nuclei")
+    maps_equal, raw_equal = [], []
+    for img, got in zip(images, serial):
+        inst, types, pclass = manager.process_image(img)
+        maps_equal.append(all(
+            np.array_equal(got[t]["inst_map"], inst[t])
+            and (types[t] is None) == (got[t]["type_map"] is None)
+            and (types[t] is None
+                 or np.array_equal(got[t]["type_map"], types[t]))
+            for t in tasks) and np.array_equal(got["pclass_map"], pclass))
+        raw_equal.append(bool(np.array_equal(
+            predictor.predict_raw(img),
+            manager.infer_canvas(img).float().cpu().numpy())))
+    threaded = [None, None]
+
+    def work(i):
+        threaded[i] = predictor.predict_tile(images[i + 1])
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    threads_equal = [not t.is_alive() for t in threads] == [True, True] and \
+        all(all(np.array_equal(got[t]["inst_map"], ref[t]["inst_map"])
+                for t in tasks)
+            and np.array_equal(got["pclass_map"], ref["pclass_map"])
+            for got, ref in zip(threaded, serial[1:]))
+    emit({"phase": "predictor", "batch": 10,
+          "images": [list(i.shape[:2]) for i in images],
+          "ms_per_image": ms, "ms_per_1000_tile": statistics.mean(ms[1:]),
+          "launches": launches, "predict_tile_equal": maps_equal,
+          "predict_raw_equal": raw_equal, "threads_equal": threads_equal,
+          "instances": {t: [int(len(np.unique(r[t]["inst_map"]))) - 1
+                            for r in serial] for t in tasks}})
+    if not (all(maps_equal) and all(raw_equal) and threads_equal):
+        raise AssertionError("predictor: outputs differ from process_image "
+                             "or between threads")
+    return launches
+
+
+def plain_metrics(labels, probs) -> dict:
+    """The patch metrics by their definitions, one threshold at a time
+    (an independent check of ``infer/patch.evaluate_classification``)."""
+    k = probs.shape[1]
+    pred = probs.argmax(1)
+    aps, accs = [], []
+    for c in range(k):
+        y = labels == c
+        if not y.any():
+            continue
+        score = probs[:, c].astype(np.float64)
+        ap = prev_recall = 0.0
+        for thr in sorted(set(score.tolist()), reverse=True):
+            sel = score >= thr
+            tp = float((sel & y).sum())
+            recall = tp / y.sum()
+            ap += (recall - prev_recall) * tp / sel.sum()
+            prev_recall = recall
+        aps.append(ap)
+        accs.append(float((pred[y] == c).mean()))
+    f1 = []
+    for c in range(k):
+        tp = float(((pred == c) & (labels == c)).sum())
+        denom = float((pred == c).sum() + (labels == c).sum())
+        f1.append(2 * tp / denom if denom else 0.0)
+    conf = np.zeros((k, k))
+    for t, p in zip(labels, pred):
+        conf[t, p] += 1
+    rows = conf.sum(1, keepdims=True)
+    conf = np.divide(conf, rows, out=np.zeros_like(conf), where=rows > 0)
+    return {"acc_all": float((pred == labels).mean()),
+            "avg_acc": float(np.mean(accs)), "avg_ap": float(np.mean(aps)),
+            "avg_f1": float(np.mean(f1)), "conf_mat": conf}
+
+
+def calibrate_pclass_head(torch, model_dir, crops):
+    """The model directory's Patch-Class head scaled by
+    ``SYNTH_PCLASS_SCALE``, then standardised per class on ``crops`` (the
+    bf16 forward on the card): each class's logit, taken relative to the
+    patch's mean logit, gets zero mean and unit spread over the patches, so
+    that no class wins every patch and the metrics are graded."""
+    from cerberus_tpu_torch.config import load_settings
+    from cerberus_tpu_torch.infer import patch
+
+    ckpt = os.path.join(model_dir, "weights.tar")
+    state = torch.load(ckpt, map_location="cpu")
+    head = "decoder_head.Patch-Class.conv2."
+    for attr in ("weight", "bias"):
+        state["desc"][head + attr] *= SYNTH_PCLASS_SCALE
+    torch.save(state, ckpt)
+    probs = patch.InferManager(
+        checkpoint_path=ckpt, model_args=load_settings(model_dir).model_kwargs,
+        device="cuda", batch_size=32).predict_probs(crops)
+    z = np.log(np.maximum(probs.astype(np.float64), 1e-30))
+    z -= z.mean(axis=1, keepdims=True)
+    mean = torch.from_numpy(z.mean(axis=0)).float()
+    spread = torch.from_numpy(np.maximum(z.std(axis=0), 1e-6)).float()
+    weight = state["desc"][head + "weight"]
+    state["desc"][head + "weight"] = weight / spread.reshape(
+        -1, *([1] * (weight.dim() - 1)))
+    state["desc"][head + "bias"] = (state["desc"][head + "bias"]
+                                    - mean) / spread
+    torch.save(state, ckpt)
+
+
+def phase_patch_eval(torch, work):
+    """The ``run_eval_patch`` CLI on ``PATCHES`` seeded ``pickle``-written
+    patches, with the smoke model's Patch-Class head scaled by
+    ``SYNTH_PCLASS_SCALE`` and then calibrated on these patches
+    (``calibrate_pclass_head``) so that several classes are predicted:
+    patches per second; its metrics against ``evaluate_classification``
+    and ``plain_metrics`` on the step's probabilities; the card's f32
+    probabilities on a subset against the CPU forward's
+    (``PATCH_REL_TOL``)."""
+    import pickle
+
+    from cerberus_tpu_torch import run_eval_patch
+    from cerberus_tpu_torch.infer import patch
+    from cerberus_tpu_torch.utils.geometry import cropping_center
+
+    model_dir = os.path.join(work, "pclass_model")
+    write_model(torch, model_dir, True)
+    ckpt = os.path.join(model_dir, "weights.tar")
+    n, k, side = PATCHES
+    input_dir = os.path.join(work, "patches")
+    os.makedirs(input_dir)
+    labels = np.arange(n) % k
+    imgs = np.stack([synthetic_image((side, side), 2000 + i)
+                     for i in range(n)])
+    for i in range(n):
+        with open(os.path.join(input_dir, "p%04d.dat" % i), "wb") as f:
+            pickle.dump({"img": imgs[i], "ann": int(labels[i])}, f)
+    calibrate_pclass_head(torch, model_dir, cropping_center(
+        imgs, (144, 144), batch=True))
+    argv = ["--gpu=0", "--model=%s" % model_dir,
+            "--input_dir=%s" % input_dir, "--batch_size=32"]
+    printout = io.StringIO()  # the CLI's metric printout, kept off stdout
+    with contextlib.redirect_stdout(printout):
+        run_eval_patch.main(argv)  # warm-up: cuDNN plans
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = run_eval_patch.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+
+    from cerberus_tpu_torch.config import load_settings
+
+    manager = patch.InferManager(
+        checkpoint_path=os.path.join(model_dir, "weights.tar"),
+        model_args=load_settings(model_dir).model_kwargs, device="cuda",
+        batch_size=32)
+    files = sorted(os.listdir(input_dir))
+    crops, file_labels = patch.load_patch_dataset(
+        [os.path.join(input_dir, f) for f in files], 144)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs = manager.predict_probs(crops)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    with contextlib.redirect_stdout(printout):
+        again = patch.evaluate_classification(
+            file_labels, probs, {i + 1: str(i + 1) for i in range(k)})
+    plain = plain_metrics(file_labels, probs)
+    same = all(metrics[key] == again[key] for key in
+               ("acc_all", "avg_acc", "avg_ap", "avg_f1")) and \
+        np.array_equal(metrics["conf_mat"], again["conf_mat"])
+    plain_diff = max([abs(metrics[key] - plain[key]) for key in
+                      ("acc_all", "avg_acc", "avg_ap", "avg_f1")]
+                     + [float(np.abs(metrics["conf_mat"]
+                                     - plain["conf_mat"]).max())])
+    # f32 on the card (TF32 off) against the CPU forward, on 32 patches
+    sub = crops[:32]
+    manager.compute_dtype = torch.float32
+    with tf32_off(torch):
+        card = manager.predict_probs(sub)
+    cpu = patch.InferManager(
+        checkpoint_path=os.path.join(model_dir, "weights.tar"),
+        model_args=manager.model_args, device="cpu",
+        batch_size=32).predict_probs(sub)
+    rel = float(np.abs(card - cpu).max()) / float(np.abs(cpu).max())
+    emit({"phase": "patch_eval", "patches": n, "classes": k,
+          "side": side, "crop": 144, "batch": 32, "compute": "bf16",
+          "cli_seconds": cli_s, "cli_patches_per_s": n / cli_s,
+          "step_seconds": step_s, "step_patches_per_s": n / step_s,
+          "metrics": {key: metrics[key] for key in
+                      ("acc_all", "avg_acc", "avg_ap", "avg_f1")},
+          "printout_lines": len(printout.getvalue().splitlines()),
+          "metrics_equal_recomputed": same,
+          "plain_metrics_max_abs_diff": plain_diff,
+          "f32_card_vs_cpu_rel_err": rel, "tol": PATCH_REL_TOL,
+          "prob_range": [float(probs.min()), float(probs.max())],
+          "predicted_classes": sorted(set(probs.argmax(1).tolist()))})
+    if not (same and plain_diff <= 1e-9 and rel <= PATCH_REL_TOL
+            and np.isfinite(probs).all() and probs.shape == (n, k)
+            and len(set(probs.argmax(1).tolist())) >= PCLASS_MIN_PREDICTED):
+        raise AssertionError("patch_eval: metrics or probabilities off")
+
+
+def phase_serving(torch, managers):
+    """The serving phases on one model directory (the smoke model, whose
+    weights ``managers`` hold: the main path's, one per geometry):
+    ``native_checkpoint``, ``tile_cli_cache``, ``tile_cli_fused``,
+    ``predictor``, ``patch_eval``, and the import probe. Returns the
+    launches of the cache, fused and predictor paths."""
+    import importlib.util
+
+    import cv2
+
+    from cerberus_tpu_torch.ops import cuda_build
+
+    emit({"phase": "import_probe", "found": {
+        name: importlib.util.find_spec(name) is not None
+        for name in ("sklearn", "msgpack", "flax", "joblib")}})
+    manager = managers["windowed"]
+    seconds = {}
+    t0 = time.perf_counter()
+    phase_native_checkpoint(torch, manager)
+    seconds["native_checkpoint"] = time.perf_counter() - t0
+    work = os.path.join(cuda_build.BUILD_DIR, "smoke_serving")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        model_dir = os.path.join(work, "model")
+        write_model(torch, model_dir, True)
+        images = serve_images()
+        for name, img in images.items():
+            for sub in ("input",) + (("input_small",) if name.startswith(
+                    "small") else ()):
+                os.makedirs(os.path.join(work, sub), exist_ok=True)
+                cv2.imwrite(os.path.join(work, sub, name + ".png"),
+                            cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        t0 = time.perf_counter()
+        windowed = phase_tile_cli_cache(torch, work, model_dir, images,
+                                        managers)
+        t1 = time.perf_counter()
+        fused = phase_tile_cli_fused(torch, work, model_dir, images, manager,
+                                     windowed)
+        t2 = time.perf_counter()
+        predictor = phase_predictor(torch, model_dir, manager)
+        t3 = time.perf_counter()
+        phase_patch_eval(torch, work)
+        seconds.update(tile_cli_cache=t1 - t0, tile_cli_fused=t2 - t1,
+                       predictor=t3 - t2,
+                       patch_eval=time.perf_counter() - t3)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit({"phase": "serving_seconds", **seconds})
+    return {"cache": windowed["launches"], "fused": fused,
+            "predictor": predictor}
+
+
 def run() -> int:
     import torch
 
@@ -1683,7 +2391,11 @@ def run() -> int:
     phase_forward_profile(torch, [("windowed_full", full_manager, False),
                                   ("windowed_valid", manager, True),
                                   ("dense_valid", dense_manager, True)])
-    del manager, full_manager, dense_manager
+    del full_manager
+    torch.cuda.empty_cache()
+    serve_launches = phase_serving(torch, {"windowed": manager,
+                                           "dense": dense_manager})
+    del manager, dense_manager
     torch.cuda.empty_cache()
     wsi_launches = phase_wsi(torch, make_manager(torch, model_dir, True,
                                                  wsi=True))
@@ -1709,6 +2421,8 @@ def run() -> int:
                         "wsi_cli_svs_launches": svs_launches[name],
                         "wsi_cli_legacy_launches":
                             legacy_run["launches"][name],
+                        **{"%s_launches" % path: counts[name]
+                           for path, counts in serve_launches.items()},
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "device_ms": row["device_ms"],
                         "device_ms_from": row["device_ms_from"],

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of cerberus_tpu_torch loads
-neither JAX, flax, cv2, PyYAML, joblib nor anything of cerberus_tpu; the source
-imports none of them at top level; kernel launches and the native patch
-gather have no fallback; entry points default to the card."""
+neither JAX, flax, cv2, PyYAML, joblib, sklearn, msgpack nor anything of
+cerberus_tpu; the source imports none of them at top level; kernel launches
+and the native patch gather have no fallback; entry points default to the
+card."""
 import os
 import pathlib
 import re
@@ -12,8 +13,11 @@ import pytest
 import torch
 
 import cerberus_tpu_torch
+from cerberus_tpu_torch import run_eval_patch
 from cerberus_tpu_torch.infer.manager import InferManager, resolve_device
+from cerberus_tpu_torch.infer.patch import InferManager as PatchInferManager
 from cerberus_tpu_torch.infer.wsi import InferManager as WSIInferManager
+from cerberus_tpu_torch.predictor import CerberusPredictor
 from cerberus_tpu_torch.ops.cc_label import connected_components
 from cerberus_tpu_torch.ops.hist16384 import hist16384
 from cerberus_tpu_torch.ops.watershed import propagate_labels, watershed
@@ -29,7 +33,8 @@ for mod in pkgutil.walk_packages(cerberus_tpu_torch.__path__,
     importlib.import_module(mod.name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "yaml",
-                                    "joblib", "cerberus_tpu"))
+                                    "joblib", "sklearn", "msgpack",
+                                    "cerberus_tpu"))
 print("LOADED", len([m for m in sys.modules
                      if m.startswith("cerberus_tpu_torch")]))
 print("BAD", bad)
@@ -39,6 +44,12 @@ print("WSI", sorted(m for m in sys.modules if m.startswith(
      "cerberus_tpu_torch.ops.cc_cpu", "cerberus_tpu_torch.ops.tissue_mask",
      "cerberus_tpu_torch.ops.postproc", "cerberus_tpu_torch.native.",
      "cerberus_tpu_torch.convert_slide"))))
+print("SERVE", sorted(m for m in sys.modules if m in (
+    "cerberus_tpu_torch.predictor", "cerberus_tpu_torch.infer.patch",
+    "cerberus_tpu_torch.infer.fused_tile", "cerberus_tpu_torch.run_eval_patch",
+    "cerberus_tpu_torch.convert_checkpoint",
+    "cerberus_tpu_torch.models.native_ckpt", "cerberus_tpu_torch.utils.debug",
+    "cerberus_tpu_torch.utils.profiling")))
 """
 
 
@@ -59,10 +70,29 @@ def test_import_all_modules_loads_no_jax_cv2_yaml_or_reference():
             "cerberus_tpu_torch.convert_slide",
             "cerberus_tpu_torch.ops.postproc",
             "cerberus_tpu_torch.ops.tissue_mask"} <= set(wsi), wsi
+    assert len(eval(lines["SERVE"])) == 8, lines["SERVE"]
 
 
 def _sources():
     return sorted(PKG.rglob("*.py"))
+
+
+_SERVE_MODULES = ("predictor.py", "models/native_ckpt.py",
+                  "models/convert.py", "infer/patch.py", "infer/fused_tile.py",
+                  "run_eval_patch.py", "convert_checkpoint.py")
+
+
+def test_serving_modules_import_no_host_library_at_module_level():
+    """The predictor, the codec and the patch loader import joblib, cv2,
+    sklearn and msgpack (where at all) inside the functions that need
+    them."""
+    top = re.compile(r"^(import|from)\s+(joblib|cv2|sklearn|msgpack|yaml)"
+                     r"(\.|\s|$)")
+    offenders = ["%s:%d" % (name, no) for name in _SERVE_MODULES
+                 for no, line in enumerate(
+                     (PKG / name).read_text().splitlines(), 1)
+                 if top.match(line)]
+    assert offenders == []
 
 
 def test_source_imports_no_jax_or_reference_package():
@@ -105,3 +135,30 @@ def test_entry_points_default_to_cuda():
         InferManager(model_args={"encoder_backbone_name": "resnet18"})
     with pytest.raises(RuntimeError, match="CUDA"):
         WSIInferManager(model_args={"encoder_backbone_name": "resnet18"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PatchInferManager(model_args={"encoder_backbone_name": "resnet18"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CerberusPredictor(None, {"encoder_backbone_name": "resnet18"}, {})
+
+
+def test_eval_patch_cli_defaults_to_cuda(tmp_path, monkeypatch):
+    """``run_eval_patch`` picks ``cuda:<--gpu>`` unless told otherwise."""
+    monkeypatch.delenv("CERBERUS_DEFAULT_DEVICE", raising=False)
+    (tmp_path / "settings.yml").write_text(
+        '{"model_kwargs": {"encoder_backbone_name": "resnet18"}}')
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_init(self, *args, device=None, **kwargs):
+        seen.append(device)
+        raise Stop
+
+    monkeypatch.setattr(PatchInferManager, "__init__", fake_init)
+    with pytest.raises(Stop):
+        run_eval_patch.main(["--model=%s" % tmp_path, "--input_dir=x"])
+    with pytest.raises(Stop):
+        run_eval_patch.main(["--model=%s" % tmp_path, "--input_dir=x",
+                             "--gpu=1"])
+    assert seen == ["cuda:0", "cuda:1"]

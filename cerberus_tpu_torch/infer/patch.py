@@ -13,7 +13,6 @@ machine has no sklearn) with sklearn's definitions.
 """
 from __future__ import annotations
 
-import pickle
 from typing import Dict, Optional
 
 import numpy as np
@@ -21,29 +20,9 @@ import torch
 
 from ..models.net_desc import patch_class_head
 from ..utils import recur_find_ext
+from ..utils.fsutils import load_dat
 from ..utils.geometry import cropping_center
 from .manager import InferManager as BaseInferManager
-
-
-def _load_dat(path: str) -> dict:
-    """One ``.dat`` payload: a plain pickle, else a joblib file."""
-    with open(path, "rb") as handle:
-        try:
-            info = pickle.load(handle)
-        except (pickle.UnpicklingError, EOFError, ImportError,
-                AttributeError, ValueError, TypeError, IndexError,
-                KeyError):
-            info = None  # not a plain pickle (a joblib payload, say)
-    if isinstance(info, dict) and isinstance(info.get("img"), np.ndarray):
-        return info
-    try:
-        import joblib
-    except ImportError as exc:
-        raise ImportError(
-            "%s is not a plain pickle of {'img', 'ann'}; reading it as a "
-            "joblib payload needs joblib, which is not installed" % path) \
-            from exc
-    return joblib.load(path)
 
 
 def load_patch_dataset(file_path_list, input_shape: int):
@@ -51,7 +30,7 @@ def load_patch_dataset(file_path_list, input_shape: int):
     ``input_shape``, labels (N,))."""
     imgs, labels = [], []
     for path in file_path_list:
-        info = _load_dat(path)
+        info = load_dat(path)
         imgs.append(cropping_center(np.asarray(info["img"]),
                                     (input_shape, input_shape)))
         labels.append(int(info["ann"]))

@@ -1,8 +1,8 @@
-"""Multi-task U-Net (eval path): shared encoder, per-task summation-skip
-decoder towers, 1x1 heads and the global-pool Patch-Class head.
+"""Multi-task U-Net: shared encoder, per-task summation-skip decoder
+towers, 1x1 heads and the global-pool Patch-Class head.
 
-Counterpart of ``cerberus_tpu/models/net_desc.py:104-474`` (inference
-only) and the reference ``models/net_desc.py``:
+Counterpart of ``cerberus_tpu/models/net_desc.py:104-474`` and the
+reference ``models/net_desc.py``:
   * ``imgs / 255``; the encoder returns a 5-scale pyramid;
   * ``conv_map``: 1x1 f[-1]->f[-2], no bias;
   * each tower runs ``prev = blk(upsample2x(prev) + skip)`` over 4 levels;
@@ -17,21 +17,41 @@ only) and the reference ``models/net_desc.py``:
 Module names equal the reference state_dict names
 (``decoder_head.Nuclei#TYPE.0.block.1.bn.running_var``,
 ``output_head.Gland.INST.x.1.conv.weight``), so ``weights.tar["desc"]``
-loads with ``load_state_dict(strict=True)``. Training-only branches
-(batch-statistics BN, dropout, remat, subtype freezing) are not ported yet.
+loads with ``load_state_dict(strict=True)``.
+
+``NetDesc.forward_train`` is the training forward (JAX ``net_forward`` with
+``bn_sink``, ``dropout_rng`` and ``remat``): batch-statistics BN
+(``layers.BatchNorm2d``), dropout 0.3 in the Patch-Class MLP, full towers,
+and ``torch.utils.checkpoint`` regions. Subtype fine-tuning
+(``subtype_frozen_prefixes``) freezes every module but the active TYPE
+decoders: ``NetDesc.train()`` keeps their BN layers in eval mode, and the
+train step (``train/steps.py``) gives their parameters no gradient.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from .backbones import get_backbone
-from .layers import ConvBlock, batch_norm, center_crop, conv2d, upsample2x
+from .layers import (
+    ConvBlock,
+    batch_norm,
+    center_crop,
+    conv2d,
+    dropout,
+    dropout_mask,
+    no_stat_fold,
+    upsample2x,
+)
+
+REMAT_MODES = (False, True, "backbone", "towers")
 
 CLS_HEAD_INT_CH = 96  # classification-head hidden width (net_layers.py:31)
 
@@ -68,19 +88,23 @@ class _PatchClassHead(nn.Module):
         self.bn2 = batch_norm(256)
         self.conv2 = conv2d(256, n_classes, 1)
 
-    def forward(self, pooled):
-        """(N, C, h, w) pooled bottom features -> (N, n_classes, h, w)."""
-        x = self.conv1(F.relu(self.bn1(pooled)))
+    def forward(self, pooled, keep: Optional[torch.Tensor] = None):
+        """(N, C, h, w) pooled bottom features -> (N, n_classes, h, w);
+        ``keep``: the dropout keep-mask after ``bn1`` (training only)."""
+        x = F.relu(self.bn1(pooled))
+        if keep is not None:
+            x = dropout(x, keep)
+        x = self.conv1(x)
         return self.conv2(F.relu(self.bn2(x)))
 
 
-def patch_class_head(head: _PatchClassHead, bottom: torch.Tensor
-                     ) -> torch.Tensor:
+def patch_class_head(head: _PatchClassHead, bottom: torch.Tensor,
+                     keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The reference head: centre-crop the bottom to 9x9 when BOTH sides
     differ from 9, global average pool, MLP -> (N, n_classes, 1, 1)."""
     if bottom.shape[-2] != 9 and bottom.shape[-1] != 9:
         bottom = center_crop(bottom, 9, 9)
-    return head(bottom.mean(dim=(2, 3), keepdim=True))
+    return head(bottom.mean(dim=(2, 3), keepdim=True), keep)
 
 
 def patch_class_head_grid(head: _PatchClassHead, bottom: torch.Tensor,
@@ -106,6 +130,42 @@ def pclass_for_cells(head: _PatchClassHead, bottom: torch.Tensor,
     if n_cells > 1 and tuple(bottom.shape[-2:]) == (expect, expect):
         return patch_class_head_grid(head, bottom, n_cells)
     return patch_class_head(head, bottom)
+
+
+def head_output_channels(cfg: ModelConfig) -> Dict[str, int]:
+    """{head code: channel count} in decoder order
+    (``cerberus_tpu/models/net_desc.py:51-62``)."""
+    out = {}
+    for decoder_name, heads in cfg.decoder_info:
+        if decoder_name not in cfg.considered_tasks:
+            continue
+        for head_name, ch in heads:
+            if decoder_name == "Patch-Class":
+                out["Patch-Class"] = ch
+            else:
+                out[decoder_name.split("#")[0] + "-" + head_name] = ch
+    return out
+
+
+def subtype_frozen_prefixes(cfg: ModelConfig
+                            ) -> Optional[Callable[[str], bool]]:
+    """Subtype fine-tuning (reference ``_freeze_weight``,
+    ``cerberus_tpu/models/net_desc.py:257-282``): with ``subtype_gland`` or
+    ``subtype_nuclei`` set, every module but the active TYPE decoder(s)
+    and their output heads is frozen. Returns ``frozen(name) -> bool`` for
+    parameter or module names, or None when no subtype flag is set."""
+    if not (cfg.subtype_gland or cfg.subtype_nuclei):
+        return None
+    trainable = [name for name, flag in (("Gland#TYPE", cfg.subtype_gland),
+                                         ("Nuclei#TYPE", cfg.subtype_nuclei))
+                 if flag]
+
+    def frozen(name: str) -> bool:
+        return not any(name.startswith(("decoder_head.%s." % t,
+                                        "output_head.%s." % t))
+                       for t in trainable)
+
+    return frozen
 
 
 class NetDesc(nn.Module):
@@ -144,9 +204,24 @@ class NetDesc(nn.Module):
     def encode(self, x: torch.Tensor):
         """Encoder pyramid with ``conv_map`` applied to its last level, and
         the pre-``conv_map`` bottom features (the Patch-Class input)."""
-        feats = self.backbone(x)
+        return self._conv_map(self.backbone(x))
+
+    def _conv_map(self, feats):
         bottom = feats[-1]
         return feats[:-1] + [self.conv_map(bottom)], bottom
+
+    def _branch(self, decoder_name: str, *feats) -> Dict[str, torch.Tensor]:
+        """One decoder tower over the pyramid and its output heads ->
+        {output key: logits}."""
+        prev = feats[-1]
+        for idx, blk in enumerate(self.decoder_head[decoder_name]):
+            prev = blk(feats[-(idx + 2)] + upsample2x(prev))
+        return {key: self.output_head[decoder_name][head_name](prev)
+                for name, head_name, key in self._heads
+                if name == decoder_name}
+
+    def _decoders(self):
+        return list(dict.fromkeys(name for name, _, _ in self._heads))
 
     def forward(self, x: torch.Tensor,
                 pclass_cells: int = 1) -> Dict[str, torch.Tensor]:
@@ -154,19 +229,68 @@ class NetDesc(nn.Module):
         Patch-Class grid (``pclass_for_cells``)."""
         feats, bottom = self.encode(x)
         out: Dict[str, torch.Tensor] = {}
-        towers = {}
-        for decoder_name, head_name, key in self._heads:
-            if decoder_name not in towers:
-                prev = feats[-1]
-                for idx, blk in enumerate(self.decoder_head[decoder_name]):
-                    prev = blk(feats[-(idx + 2)] + upsample2x(prev))
-                towers[decoder_name] = prev
-            out[key] = self.output_head[decoder_name][head_name](
-                towers[decoder_name])
+        for decoder_name in self._decoders():
+            out.update(self._branch(decoder_name, *feats))
         if "Patch-Class" in self.decoder_head:
             out["Patch-Class"] = pclass_for_cells(
                 self.decoder_head["Patch-Class"], bottom, pclass_cells)
         return out
+
+    def train(self, mode: bool = True) -> "NetDesc":
+        """``nn.Module.train``, except that under subtype fine-tuning the
+        frozen modules' BN layers stay in eval mode (stored statistics,
+        nothing folded), as JAX ``net_forward`` runs them
+        (``cerberus_tpu/models/net_desc.py:370-398``)."""
+        super().train(mode)
+        frozen = subtype_frozen_prefixes(self.cfg)
+        if mode and frozen is not None:
+            for name, mod in self.named_modules():
+                if isinstance(mod, nn.BatchNorm2d) and frozen(name + "."):
+                    mod.eval()
+        return self
+
+    def forward_train(self, x: torch.Tensor, remat=False,
+                      keep: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """The training forward: NCHW float in [0, 1] -> {head: NCHW
+        logits}, full towers, BN per its mode (``train()``).
+
+        ``keep``: the Patch-Class dropout keep-mask, (N, C, 1, 1) bool for
+        the pooled features after ``bn1``; else one is drawn from
+        ``generator``; with neither, no dropout (JAX ``dropout_rng=None``).
+        ``remat`` (``False``/``True``/``"backbone"``/``"towers"``) runs the
+        encoder and/or each tower with its output heads as one
+        ``torch.utils.checkpoint`` region whose recompute folds no BN
+        statistics; the Patch-Class head stays outside every region."""
+        if remat not in REMAT_MODES:
+            raise ValueError("remat must be bool or 'backbone'/'towers', "
+                             "got %r" % (remat,))
+        feats, bottom = self._conv_map(self._region(
+            self.backbone, remat in (True, "backbone"), self.backbone, x))
+        out: Dict[str, torch.Tensor] = {}
+        for decoder_name in self._decoders():
+            out.update(self._region(
+                self._branch, remat in (True, "towers"),
+                nn.ModuleList([self.decoder_head[decoder_name],
+                               self.output_head[decoder_name]]),
+                decoder_name, *feats))
+        if "Patch-Class" in self.decoder_head:
+            head = self.decoder_head["Patch-Class"]
+            if keep is None and generator is not None:
+                keep = dropout_mask((bottom.shape[0], bottom.shape[1], 1, 1),
+                                    generator, bottom.device)
+            out["Patch-Class"] = patch_class_head(head, bottom, keep)
+        return out
+
+    @staticmethod
+    def _region(fn, remat: bool, module: nn.Module, *args):
+        """``fn(*args)``, as a checkpointed region when ``remat``."""
+        if not remat:
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              no_stat_fold(module)))
 
 
 def net_forward(model: NetDesc, imgs: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -2,7 +2,8 @@
 
 Behavioral parity with the reference's ``misc/utils.py`` (rm_n_mkdir
 ``misc/utils.py:113-116``, mkdir ``:107-110``, recur_find_ext ``:250-265``,
-get_files ``:119-130``, save_json ``:329-345``).
+get_files ``:119-130``, save_json ``:329-345``), and ``load_dat`` for the
+``.dat`` payloads of patch evaluation and training.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import glob
 import json
 import os
 import pathlib
+import pickle
 import shutil
 
 import numpy as np
@@ -75,3 +77,25 @@ def save_json(path: str, old_dict: dict, mag=None) -> None:
     json_dict = {"mag": mag, "instances": new_dict}
     with open(path, "w") as handle:
         json.dump(json_dict, handle)
+
+
+def load_dat(path: str) -> dict:
+    """One ``.dat`` payload of ``{"img", ...}``: a plain pickle, else a
+    joblib file (joblib imported only then)."""
+    with open(path, "rb") as handle:
+        try:
+            info = pickle.load(handle)
+        except (pickle.UnpicklingError, EOFError, ImportError,
+                AttributeError, ValueError, TypeError, IndexError,
+                KeyError):
+            info = None  # not a plain pickle (a joblib payload, say)
+    if isinstance(info, dict) and isinstance(info.get("img"), np.ndarray):
+        return info
+    try:
+        import joblib
+    except ImportError as exc:
+        raise ImportError(
+            "%s is not a plain pickle of {'img', 'ann'}; reading it as a "
+            "joblib payload needs joblib, which is not installed" % path) \
+            from exc
+    return joblib.load(path)

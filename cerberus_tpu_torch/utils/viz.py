@@ -1,15 +1,17 @@
-"""Instance overlay drawing (a copy of the overlay part of
+"""Instance overlay drawing and ``colorize`` (copies of those parts of
 ``cerberus_tpu/utils/viz.py``; reference ``misc/viz_utils.py``
-``visualize_instances_dict_orig`` :187-214). Draws Gland -> Lumen -> Nuclei
-with per-tissue colours and line widths from a cwd ``dataset.yml``
-``viz_info`` when present, else the built-in defaults. cv2 and PyYAML are
-imported inside the functions that need them.
+``colorize`` :83-95, ``visualize_instances_dict_orig`` :187-214). Draws
+Gland -> Lumen -> Nuclei with per-tissue colours and line widths from a cwd
+``dataset.yml`` ``viz_info`` when present, else the built-in defaults. cv2,
+PyYAML and matplotlib are imported inside the functions that need them.
 """
 from __future__ import annotations
 
 import os
 
 import numpy as np
+
+from .geometry import center_pad_to_shape
 
 # defaults mirroring the reference dataset.yml viz_info blocks (dataset.yml:21-79)
 DEFAULT_VIZ_INFO = {
@@ -87,3 +89,20 @@ def visualize_instances_dict(input_image, inst_dict_all, viz_info=None):
                                                   dtype=np.int32)],
                              -1, colour, line_width)
     return overlay
+
+
+def colorize(ch, vmin, vmax, cmap=None, shape=None):
+    """A single-channel map -> (H, W, 3) uint8 through a matplotlib colour
+    map (``jet`` by default), clipped to [vmin, vmax]; centre-padded to
+    ``shape`` when given."""
+    import matplotlib.pyplot as plt
+
+    if cmap is None:
+        cmap = plt.get_cmap("jet")
+    ch = np.squeeze(np.asarray(ch).astype("float32")).copy()
+    ch = np.clip(ch, vmin, vmax)
+    ch = (ch - vmin) / (vmax - vmin + 1.0e-16)
+    ch_cmap = (cmap(ch)[..., :3] * 255).astype("uint8")
+    if shape is not None:
+        ch_cmap = center_pad_to_shape(ch_cmap, shape)
+    return ch_cmap

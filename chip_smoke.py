@@ -137,12 +137,28 @@ Phases, each printing JSON lines:
      The cache, fused and predictor runs reset the launch counts just
      before and read them just after; every kernel must launch in each.
 
+  10. training (after the WSI phases; no kernel of the JAX package lies
+     on it): ``train_step``: the default model (ResNet-34, six heads) at
+     448^2, batch 12, on the synthetic batch of
+     ``tests/_torch_train_helpers.py``, in bf16 and f32, bf16 with
+     ``remat=True`` and bf16 with ``grad_accum=4``: median step ms,
+     images/s, peak GiB, the device-busy share and top five operations
+     of a profiled step, model TFLOP/s against the dense bf16 peak;
+     ``train_parity``: the train step on the card against the CPU's
+     (resnet18, 96^2, batch 4) in float64 and f32, plain, subtype-frozen
+     and with a head missing and masked; ``train_cli``: ``python -m
+     cerberus_tpu_torch.run_train`` on 24 seeded 448^2 samples for one
+     epoch in bf16, then ``--resume`` of its checkpoint, with the host
+     loader's share of the wall time; ``train_convergence``: ``python -m
+     cerberus_tpu_torch.train.convergence`` (480 steps, then the tile
+     CLI on the checkpoint); ``training_seconds``.
+
 The second-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without CUDA, or without the package beside this script, it exits 1 and
 prints no result. It imports nothing of JAX or cerberus_tpu; cv2 and
-PyYAML are imported only by the CLIs' host side (phases 6, 8 and 9) and
-the readers phase.
+PyYAML are imported only by the CLIs' host side (phases 6, 8, 9 and 10)
+and the readers phase.
 """
 from __future__ import annotations
 
@@ -2358,6 +2374,318 @@ def phase_serving(torch, managers):
             "predictor": predictor}
 
 
+TRAIN_HW, TRAIN_BATCH = 448, 12  # run_train.py's default geometry
+TRAIN_RUNS = (("bf16", True, False, 1), ("f32", False, False, 1),
+              ("bf16_remat", True, True, 1), ("bf16_accum4", True, False, 4))
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+TRAIN_CLI_SAMPLES = 24
+
+
+def train_helpers():
+    """The port's train-test helpers (``tests/_torch_train_helpers.py``:
+    the 6-head config, the loss table, the synthetic batch and the
+    card-against-CPU step comparison)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_train_helpers
+
+    return _torch_train_helpers
+
+
+def profile_step(torch, fn):
+    """One ``fn()`` under ``torch.profiler``: (wall ms, device ms, top five
+    device operations)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        ops[evt.key[:90]] = ops.get(evt.key[:90], 0.0) + us
+    dev_ms = sum(ops.values()) / 1e3
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:5]
+    return wall_ms, dev_ms, [{"name": k, "ms": v / 1e3,
+                              "share": v / 1e3 / dev_ms if dev_ms else None}
+                             for k, v in top]
+
+
+def phase_train_step(torch, dev):
+    """The default model (ResNet-34, six heads) training at 448^2, batch
+    12, on ``tests/_torch_train_helpers.make_batch``'s synthetic batch:
+    bf16 and f32 (cuDNN's default TF32), bf16 with ``remat=True``, bf16
+    with ``grad_accum=4``. Per run: median step ms of 10 steps after 3
+    warm-up ones (the host batch copied in through pinned memory each
+    step, the loss read back), images/s, peak GiB, the profiled step's
+    device-busy share and top five device operations, and model TFLOP/s
+    (3x the full-tower forward FLOPs of ``utils/flops.py``) as a share of
+    the card's dense bf16 peak. Every loss must be finite and the BN
+    statistics must move."""
+    from cerberus_tpu_torch.config import ModelConfig
+    from cerberus_tpu_torch.models.net_desc import NetDesc, init_weights
+    from cerberus_tpu_torch.train.steps import make_train_step
+    from cerberus_tpu_torch.train.utils import tame_head_logits
+    from cerberus_tpu_torch.utils.flops import forward_flops
+
+    helpers = train_helpers()
+    kwargs = helpers.model_kwargs("resnet34")
+    cfg = ModelConfig.from_kwargs(kwargs)
+    state = tame_head_logits(init_weights(
+        NetDesc(cfg), torch.Generator().manual_seed(0)).state_dict())
+    batch = helpers.make_batch(np.random.default_rng(0), n=TRAIN_BATCH,
+                               hw=TRAIN_HW)
+    step_flops = 3 * forward_flops(TRAIN_HW, TRAIN_HW, False, cfg,
+                                   TRAIN_BATCH)["flops"]
+    runs = {}
+    for name, bf16, remat, accum in TRAIN_RUNS:
+        model = NetDesc(cfg)
+        model.load_state_dict(state)
+        model.to(dev)
+        step = make_train_step(
+            cfg, helpers.LOSS_KWARGS, {"lr": 1e-3},
+            compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+            remat=remat, grad_accum=accum, model=model)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        stats0 = model.backbone.bn1.running_var.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            t0 = time.perf_counter()
+            metrics = step(batch, generator=gen)
+            losses.append(float(metrics["overall_loss"]))
+            if i >= TRAIN_WARMUP:
+                times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall_ms, dev_ms, top = profile_step(
+            torch, lambda: float(step(batch, generator=gen)
+                                 ["overall_loss"]))
+        ms = statistics.median(times)
+        runs[name] = {
+            "compute": "bf16" if bf16 else "f32", "remat": remat,
+            "grad_accum": accum, "step_ms": ms,
+            "step_ms_range": [min(times), max(times)],
+            "images_per_s": TRAIN_BATCH / ms * 1e3, "peak_gib": peak,
+            "profiled_step_ms": wall_ms, "device_ms": dev_ms,
+            "device_busy_share": dev_ms / wall_ms, "top_ops": top,
+            "model_tflop_per_s": step_flops / (ms * 1e-3) / 1e12,
+            "share_of_bf16_dense_peak": step_flops / (ms * 1e-3) / 989e12,
+            "loss_first": losses[0], "loss_last": losses[-1]}
+        moved = not torch.equal(model.backbone.bn1.running_var, stats0)
+        del model, step
+        torch.cuda.empty_cache()
+        if not (all(np.isfinite(losses)) and moved and dev_ms > 0):
+            raise AssertionError("train_step %s: losses %s, BN moved %s"
+                                 % (name, losses, moved))
+    emit({"phase": "train_step", "model": "resnet34, six heads",
+          "hw": TRAIN_HW, "batch": TRAIN_BATCH,
+          "model_gflop_per_step": step_flops / 1e9,
+          "peak_bf16_dense_tflop_per_s": 989, "runs": runs})
+    return runs
+
+
+def phase_train_parity(torch, dev):
+    """The train step on the card against the same step on the CPU
+    (``tests/_torch_train_helpers.card_parity``): resnet18, six heads,
+    96^2, batch 4, the dropout keep-mask passed, TF32 off. In float64 the
+    two agree within 1e-8 (loss, BN statistics) and 1e-6 of each gradient
+    tensor's largest magnitude: the same function. In f32 the loss scalars
+    agree within 1e-4 relative and the BN statistics within 1e-4; the f32
+    gradients are printed against each other and against float64 (batch
+    statistics at random init put the CPU's own f32 gradients 1.8e-3 to
+    8e-2 of a tensor's largest magnitude from float64), and the card's
+    median tensor error against float64 must stay within 4x the CPU's.
+    Also the subtype-frozen step (frozen weights and BN
+    statistics unchanged on the card) and a batch with Nuclei-TYPE missing
+    and Gland-TYPE masked for two samples (that head's gradients exactly
+    zero on the card)."""
+    helpers = train_helpers()
+    cases = {}
+    for name, flags in (("plain", {}), ("subtype_gland",
+                                        {"subtype_gland": True}),
+                        ("masked", {})):
+        kwargs, state, batch, keep = helpers.parity_case(**flags)
+        if name == "masked":
+            batch.pop("Nuclei-TYPE")
+            batch["has_target"][:2, 4] = 0  # Gland-TYPE, samples 0 and 1
+        with tf32_off(torch):
+            report = helpers.card_parity(dev, kwargs, state, batch, keep)
+        _metrics, card_grads, card_state = report.pop("card_f32")
+        if name == "subtype_gland":
+            frozen = [k for k in state if not k.startswith((
+                "decoder_head.Gland#TYPE.", "output_head.Gland#TYPE."))
+                and not k.endswith("num_batches_tracked")]
+            report["frozen_unchanged"] = all(
+                torch.equal(card_state[k], state[k]) for k in frozen)
+            report["ok"] &= report["frozen_unchanged"] and not any(
+                k in card_grads for k in frozen)
+        if name == "masked":
+            report["missing_head_grads_zero"] = all(
+                not bool(v.any()) for k, v in card_grads.items()
+                if "Nuclei#TYPE" in k)
+            report["ok"] &= report["missing_head_grads_zero"]
+        cases[name] = report
+    emit({"phase": "train_parity", "setting": "resnet18, six heads, 96^2, "
+          "batch 4, TF32 off", "tolerances": {
+              "f64": helpers.PARITY_F64_TOLS,
+              "f32_loss_rel": helpers.PARITY_LOSS_TOL,
+              "f32_bn_rel": helpers.PARITY_BN_TOL,
+              "f32_grad_median_vs_f64_over_cpu":
+                  helpers.PARITY_F32_GRAD_FACTOR},
+          "cases": cases})
+    if not all(c["ok"] for c in cases.values()):
+        raise AssertionError("train_parity: the card's step disagrees with "
+                             "the CPU's")
+
+
+def write_train_samples(data_dir, n, hw, seed=0):
+    """``n`` seeded ``MTLPatchDataset`` samples with every head's channels:
+    gland discs (types 1-2) holding a lumen each, nuclei dots (types
+    1-6) between them, a patch class."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(data_dir, exist_ok=True)
+    for i in range(n):
+        img = np.full((hw, hw, 3), 230, np.uint8)
+        maps = {k: np.zeros((hw, hw), np.int32) for k in (
+            "Gland-INST", "Gland-TYPE", "Lumen-INST", "Nuclei-INST",
+            "Nuclei-TYPE")}
+        for g in range(1, 7):
+            r = int(rng.integers(hw // 18, hw // 7))
+            cy, cx = (int(v) for v in rng.integers(r, hw - r, 2))
+            col = tuple(int(v) for v in rng.integers(120, 200, 3))
+            cv2.circle(img, (cx, cy), r, col, -1)
+            cv2.circle(maps["Gland-INST"], (cx, cy), r, g, -1)
+            cv2.circle(maps["Gland-TYPE"], (cx, cy), r,
+                       int(rng.integers(1, 3)), -1)
+            cv2.circle(img, (cx, cy), r // 3, (245, 245, 245), -1)
+            cv2.circle(maps["Lumen-INST"], (cx, cy), r // 3, g, -1)
+        for k in range(1, 81):
+            cy, cx = (int(v) for v in rng.integers(5, hw - 5, 2))
+            cv2.circle(img, (cx, cy), 4, (60, 30, 110), -1)
+            cv2.circle(maps["Nuclei-INST"], (cx, cy), 4, k, -1)
+            cv2.circle(maps["Nuclei-TYPE"], (cx, cy), 4,
+                       int(rng.integers(1, 7)), -1)
+        channels = list(maps)
+        np.save(os.path.join(data_dir, "s%03d.npy" % i), {
+            "img": img, "ann": np.stack([maps[c] for c in channels], -1),
+            "channels": channels, "patch_class": int(rng.integers(0, 9))})
+
+
+def phase_train_cli(torch):
+    """``python -m cerberus_tpu_torch.run_train`` (its ``main``, in this
+    process, ``--gpu=0 --bf16``) on 24 seeded 448^2 samples, one epoch at
+    the default batch 12 with ``--per_n_steps=1``: ``stats.yml`` and a
+    train state are written; then ``--resume`` of that state runs one more
+    epoch from its update count (the next state holds count + 1 and Adam's
+    count with it). Prints the wall seconds and the share of them spent
+    waiting for the host loader's next batch beside the step's."""
+    import yaml
+
+    from cerberus_tpu_torch import run_train
+    from cerberus_tpu_torch.config import DEFAULT_TARGET_CODE
+    from cerberus_tpu_torch.models.convert import load_train_state
+    from cerberus_tpu_torch.ops import cuda_build
+
+    helpers = train_helpers()
+    work = os.path.join(cuda_build.BUILD_DIR, "smoke_train_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        data = os.path.join(work, "data")
+        write_train_samples(data, TRAIN_CLI_SAMPLES, TRAIN_HW)
+        settings = os.path.join(work, "settings.yml")
+        with open(settings, "w") as handle:
+            yaml.safe_dump({
+                "model_kwargs": helpers.model_kwargs("resnet34"),
+                "optimizer_kwargs": {"lr": 1.0e-3, "betas": [0.9, 0.999]},
+                "loss_kwargs": helpers.LOSS_KWARGS,
+                "dataset_kwargs": {"req_target_code": dict(
+                    DEFAULT_TARGET_CODE), "train_dir": data,
+                    "input_shape": TRAIN_HW, "output_shape": TRAIN_HW}},
+                handle)
+        log_dir = os.path.join(work, "logs")
+        argv = ["--settings=%s" % settings, "--log_dir=%s" % log_dir,
+                "--nr_epochs=1", "--per_n_steps=1", "--bf16", "--gpu=0"]
+        t0 = time.perf_counter()
+        net = run_train.main(argv)
+        first_s = time.perf_counter() - t0
+        timing = dict(net.timing)
+        ckpt = os.path.join(log_dir, "net_step-000001.tar")
+        with open(os.path.join(log_dir, "stats.yml")) as handle:
+            stats = yaml.safe_load(handle)
+        _, _, saved_step = load_train_state(ckpt)
+        resumed = run_train.main(argv + ["--resume=%s" % ckpt])
+        _, opt_state, next_step = load_train_state(
+            os.path.join(log_dir, "net_step-000002.tar"))
+        adam_count = int(opt_state["inner_states"]["train"]["inner_state"]
+                         ["0"]["count"])
+        row = {"samples": TRAIN_CLI_SAMPLES, "hw": TRAIN_HW,
+               "batch": 12, "seconds_first_run": first_s,
+               "loader_wait_s": timing["loader_wait_s"],
+               "step_s": timing["step_s"], "wall_s": timing["wall_s"],
+               "loader_wait_share": timing["loader_wait_s"]
+               / timing["wall_s"],
+               "stats_keys": sorted(stats.get("0", {})),
+               "saved_step": saved_step, "resumed_step": resumed.step,
+               "next_checkpoint_step": next_step,
+               "next_checkpoint_adam_count": adam_count,
+               "lr_after_resume": resumed.lr}
+        emit({"phase": "train_cli", **row})
+        if not (net.step == 2 and saved_step == 2 and resumed.step == 4
+                and next_step == 3 and adam_count == 3
+                and "train-overall_loss" in row["stats_keys"]
+                and resumed.lr == resumed.train_step.schedule(4)):
+            raise AssertionError("train_cli: checkpoint or resume off")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_train_convergence(torch):
+    """``python -m cerberus_tpu_torch.train.convergence`` on the card: 480
+    steps of resnet18 at 48^2 through ``run_train`` (the JAX tool's 64
+    samples and 32 windows drawn at the served scale), then the last
+    checkpoint through the tile CLI; the loss must fall to a tenth and the
+    instances must align with the drawn discs (``convergence.check``)."""
+    from cerberus_tpu_torch.ops import cuda_build
+    from cerberus_tpu_torch.train import convergence
+
+    root = os.path.join(cuda_build.BUILD_DIR, "smoke_convergence")
+    try:
+        artifact = convergence.run(root=root)
+        emit({"phase": "train_convergence", **artifact})
+        convergence.check(artifact)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_training(torch, dev):
+    """The training phases, with their seconds."""
+    seconds = {}
+    t0 = time.perf_counter()
+    phase_train_step(torch, dev)
+    seconds["train_step"] = time.perf_counter() - t0
+    for name, fn in (("train_parity", lambda: phase_train_parity(torch,
+                                                                  dev)),
+                     ("train_cli", lambda: phase_train_cli(torch)),
+                     ("train_convergence",
+                      lambda: phase_train_convergence(torch))):
+        t0 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    emit({"phase": "training_seconds", **seconds})
+
+
 def run() -> int:
     import torch
 
@@ -2410,6 +2738,7 @@ def run() -> int:
         shutil.rmtree(readers_work, ignore_errors=True)
     legacy_run = phase_wsi_cli_legacy(torch, resident_run)
     phase_wsi_cli_cpu(torch, legacy_run)
+    phase_training(torch, dev)
 
     kernels = []
     for name in cuda_build.LAUNCH_COUNTERS:

@@ -399,3 +399,78 @@ def test_dense_step_grid_on_card(dev):
     assert torch.equal(cells.amax(dim=(2, 4)), cells.amin(dim=(2, 4)))
     assert 0 <= float(pc.min()) and float(pc.max()) < 9
     assert torch.equal(pc, pc.round())
+
+
+# -- training (the card against the CPU; helpers in _torch_train_helpers) --
+
+def _tf32_off():
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return saved
+
+
+def _tf32_restore(saved):
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """resnet18, six heads, 96^2, batch 4, the dropout mask passed, TF32
+    off: float64 equal to the CPU's within 1e-8 (loss, BN statistics) and
+    1e-6 of each gradient tensor's largest magnitude; f32 loss and BN
+    statistics within 1e-4, the median f32 gradient tensor's error
+    against float64 within 4x the CPU's (``card_parity``)."""
+    import _torch_train_helpers as H
+
+    kwargs, state, batch, keep = H.parity_case()
+    saved = _tf32_off()
+    try:
+        report = H.card_parity(dev, kwargs, state, batch, keep)
+    finally:
+        _tf32_restore(saved)
+    report.pop("card_f32")
+    assert report["ok"], report
+
+
+def test_train_step_bf16_on_card_is_finite_and_folds_bn(dev):
+    import _torch_train_helpers as H
+
+    kwargs, state, batch, keep = H.parity_case()
+    metrics, grads, after = H.step_on(dev, kwargs, state, batch, keep,
+                                      compute_dtype=torch.bfloat16)
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    assert not torch.equal(after["backbone.bn1.running_var"],
+                           state["backbone.bn1.running_var"])
+    assert after["backbone.conv1.weight"].dtype == torch.float32
+
+
+def test_remat_equals_plain_on_card_f32(dev):
+    """``remat=True`` against plain, f32, TF32 off, deterministic cuDNN:
+    the same losses and BN statistics (folded once), gradients within
+    1e-4 of each tensor's largest magnitude plus 4x the card's own
+    run-to-run spread (the bilinear upsampling's backward adds with
+    atomics)."""
+    import _torch_train_helpers as H
+
+    kwargs, state, batch, keep = H.parity_case()
+    saved = _tf32_off()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain, again, remat = (
+            H.step_on(dev, kwargs, state, batch, keep, remat=mode)
+            for mode in (False, False, True))
+    finally:
+        torch.backends.cudnn.deterministic = det
+        _tf32_restore(saved)
+    assert remat[0] == plain[0]
+    for key, value in plain[2].items():
+        if "running_" in key:
+            assert torch.equal(remat[2][key], value), key
+    for name, ref in plain[1].items():
+        spread = float((again[1][name] - ref).abs().max())
+        tol = 1e-4 * float(ref.abs().max()) + 4 * spread
+        assert float((remat[1][name] - ref).abs().max()) <= tol, name

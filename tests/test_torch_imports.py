@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of cerberus_tpu_torch loads
-neither JAX, flax, cv2, PyYAML, joblib, sklearn, msgpack nor anything of
-cerberus_tpu; the source imports none of them at top level; kernel launches
-and the native patch gather have no fallback; entry points default to the
-card."""
+neither JAX, flax, optax, cv2, PyYAML, joblib, sklearn, msgpack, matplotlib
+nor anything of cerberus_tpu; the source imports none of them at top level
+(the training path no scipy either); kernel launches and the native patch
+gather have no fallback; entry points default to the card."""
 import os
 import pathlib
 import re
@@ -32,9 +32,9 @@ for mod in pkgutil.walk_packages(cerberus_tpu_torch.__path__,
                                  "cerberus_tpu_torch."):
     importlib.import_module(mod.name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2", "yaml",
-                                    "joblib", "sklearn", "msgpack",
-                                    "cerberus_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2",
+                                    "yaml", "joblib", "sklearn", "msgpack",
+                                    "matplotlib", "cerberus_tpu"))
 print("LOADED", len([m for m in sys.modules
                      if m.startswith("cerberus_tpu_torch")]))
 print("BAD", bad)
@@ -50,6 +50,9 @@ print("SERVE", sorted(m for m in sys.modules if m in (
     "cerberus_tpu_torch.convert_checkpoint",
     "cerberus_tpu_torch.models.native_ckpt", "cerberus_tpu_torch.utils.debug",
     "cerberus_tpu_torch.utils.profiling")))
+print("TRAIN", sorted(m for m in sys.modules if m.startswith(
+    ("cerberus_tpu_torch.train.", "cerberus_tpu_torch.data.",
+     "cerberus_tpu_torch.run_train"))))
 """
 
 
@@ -71,6 +74,11 @@ def test_import_all_modules_loads_no_jax_cv2_yaml_or_reference():
             "cerberus_tpu_torch.ops.postproc",
             "cerberus_tpu_torch.ops.tissue_mask"} <= set(wsi), wsi
     assert len(eval(lines["SERVE"])) == 8, lines["SERVE"]
+    train = set(eval(lines["TRAIN"]))
+    assert {"cerberus_tpu_torch.run_train"} | {
+        "cerberus_tpu_torch.train." + name for name in _TRAIN_MODULES} | {
+        "cerberus_tpu_torch.data." + name
+        for name in ("augs", "targets", "train_loader")} <= train, train
 
 
 def _sources():
@@ -80,6 +88,25 @@ def _sources():
 _SERVE_MODULES = ("predictor.py", "models/native_ckpt.py",
                   "models/convert.py", "infer/patch.py", "infer/fused_tile.py",
                   "run_eval_patch.py", "convert_checkpoint.py")
+
+
+_TRAIN_MODULES = ("callbacks", "convergence", "engine", "losses", "metrics",
+                  "opt", "serialize", "steps", "utils", "viz")
+
+
+def test_training_modules_import_no_host_library_at_module_level():
+    """The training path imports cv2, scipy, PyYAML, matplotlib and joblib
+    inside the functions that need them."""
+    top = re.compile(r"^(import|from)\s+(joblib|cv2|scipy|yaml|matplotlib|"
+                     r"optax|flax)(\.|\s|$)")
+    names = (["train/%s.py" % name for name in _TRAIN_MODULES]
+             + ["data/augs.py", "data/targets.py", "data/train_loader.py",
+                "run_train.py", "models/layers.py", "models/net_desc.py"])
+    offenders = ["%s:%d" % (name, no) for name in names
+                 for no, line in enumerate(
+                     (PKG / name).read_text().splitlines(), 1)
+                 if top.match(line)]
+    assert offenders == []
 
 
 def test_serving_modules_import_no_host_library_at_module_level():

@@ -8,12 +8,16 @@ reference checkpoint's ``"desc"`` state_dict loads directly.
 ``cerberus_tpu.models.convert.convert_torch_state_dict``:
 
   ``params[<name>]["kernel"]`` (H,W,I,O) -> ``<name>.weight`` (O,I,H,W)
+  ``params[<name>]["gweight"]`` (rank 8) -> ``<name>.weight``, as it is
   ``params[<name>]["scale"]``            -> ``<name>.weight``
   ``params[<name>]["bias"]``             -> ``<name>.bias``
   ``params[<name>]["mean"/"var"]``       -> ``<name>.running_mean/var``
 
 BN leaves also get ``num_batches_tracked = 0`` (which the forward conversion
-drops), so the result loads with ``strict=True``.
+drops), so the result loads with ``strict=True``. A reference DSF-CNN
+checkpoint carries a constant ``<name>.basis_filters`` buffer per G-conv;
+the JAX converter drops it, and so does every loader here (the port's
+``GConv2d`` keeps its rotated basis as a non-persistent buffer).
 ``jax_params_from_state_dict`` is the forward conversion (a copy of the JAX
 ``convert_torch_state_dict``). ``load_checkpoint`` tells a torch file from a
 native one by content, as the JAX loader does; native files are read by
@@ -55,6 +59,13 @@ def strip_data_parallel_prefix(state_dict: Dict) -> Dict:
     return state_dict
 
 
+def drop_basis_filters(state_dict: Dict) -> Dict:
+    """Without the G-convs' constant ``basis_filters`` buffers
+    (``cerberus_tpu/models/convert.py:46-49``)."""
+    return {k: v for k, v in state_dict.items()
+            if not k.endswith(".basis_filters")}
+
+
 def _desc_state_dict(ckpt) -> Dict:
     """A loaded torch checkpoint -> its ``"desc"`` state_dict with any
     DataParallel ``module.`` prefix stripped. A raw torchvision backbone
@@ -62,7 +73,7 @@ def _desc_state_dict(ckpt) -> Dict:
     (``convert_torchvision_backbone``)."""
     state_dict = ckpt["desc"] if isinstance(ckpt, dict) and "desc" in ckpt \
         else ckpt
-    state_dict = strip_data_parallel_prefix(state_dict)
+    state_dict = drop_basis_filters(strip_data_parallel_prefix(state_dict))
     if is_torchvision_backbone_state_dict(state_dict):
         return convert_torchvision_backbone(state_dict)
     return state_dict
@@ -194,6 +205,8 @@ def _torch_entry(name: str, attr: str, value) -> tuple:
         if value.ndim == 2:    # linear (I,O) -> (O,I)
             return "weight", value.T
         raise ValueError("unrecognized kernel rank for %s" % name)
+    if attr == "gweight":  # steerable G-conv coefficients, kept as they are
+        return "weight", value
     if attr in _ATTR:
         return _ATTR[attr], value
     raise ValueError("unrecognized parameter %s.%s" % (name, attr))
@@ -214,6 +227,8 @@ def _jax_entry(key: str, value) -> tuple:
             return name, "scale", value.astype(np.float32)
         if value.ndim == 2:    # linear (O,I) -> (I,O)
             return name, "kernel", value.T.copy()
+        if value.ndim == 8:    # steerable G-conv coefficients, as they are
+            return name, "gweight", value.astype(np.float32)
         raise ValueError("unrecognized weight rank for %s" % key)
     if attr in _JAX_ATTR:
         return name, _JAX_ATTR[attr], value.astype(np.float32)
@@ -237,7 +252,8 @@ def jax_params_from_state_dict(state_dict: Dict) -> Dict[str, Dict]:
     """torch state_dict -> the JAX flat tree of numpy arrays (the JAX
     ``convert_torch_state_dict``; ``num_batches_tracked`` is dropped)."""
     params: Dict[str, Dict[str, np.ndarray]] = {}
-    for key, value in strip_data_parallel_prefix(state_dict).items():
+    for key, value in drop_basis_filters(
+            strip_data_parallel_prefix(state_dict)).items():
         name, attr, value = _jax_entry(key, value)
         if attr is not None:
             params.setdefault(name, {})[attr] = value
@@ -261,8 +277,7 @@ def train_state_from_jax(params: Dict, opt_state: Optional[Dict],
         count = torch.tensor(float(np.asarray(moments["count"])))
         for idx, key in enumerate(param_names):
             name, attr = key.rsplit(".", 1)
-            attr = ("kernel" if state_dict[key].dim() > 1 else "scale") \
-                if attr == "weight" else _JAX_ATTR[attr]
+            attr = _jax_entry(key, state_dict[key])[1]
             _, exp_avg = _torch_entry(name, attr, moments["mu"][name][attr])
             _, exp_avg_sq = _torch_entry(name, attr,
                                          moments["nu"][name][attr])

@@ -14,6 +14,17 @@ reference ``models/net_desc.py``:
     (``patch_class_head_grid``);
   * output keys ``"<decoder before '#'>-<head>"`` and ``"Patch-Class"``.
 
+With a DSF-CNN encoder (``dsf_cnn_{4,8,12}``, ``cerberus_tpu/models/
+net_desc.py:96-172, 190-205, 396-470``) the pyramid carries ``O`` orientations
+per channel and: there is no ``conv_map``; each tower level is two
+pre-activation G-conv layers (GBN-ReLU-GConv k7,
+``decoder_head.<dec>.<i>.block.<j>.{pre_bn.norm,conv}``) after the same
+upsampling-plus-skip sum; the tower ends in a max over the orientations;
+each head is BN-ReLU-Conv1x1(->96)-BN-ReLU-Conv1x1(->out)
+(``output_head.<dec>.<head>.block.<j>.{bn,conv}``). A Patch-Class head with
+a DSF encoder raises ``NotImplementedError``, as in the JAX package and the
+reference.
+
 Module names equal the reference state_dict names
 (``decoder_head.Nuclei#TYPE.0.block.1.bn.running_var``,
 ``output_head.Gland.INST.x.1.conv.weight``), so ``weights.tar["desc"]``
@@ -40,6 +51,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from .backbones import get_backbone
+from .backbones.dsf_cnn import GConvBlock
+from .gconv import GConv2d, group_pool, init_gconv
 from .layers import (
     ConvBlock,
     batch_norm,
@@ -75,6 +88,41 @@ class _OutputHead(nn.Module):
 
     def forward(self, x):
         return self.x[1](self.x[0](x))
+
+
+class _PreActConv(nn.Module):
+    """BN -> ReLU -> 1x1 conv under ``bn`` / ``conv``."""
+
+    def __init__(self, cin, cout):
+        super().__init__()
+        self.bn = batch_norm(cin)
+        self.conv = conv2d(cin, cout, 1)
+
+    def forward(self, x):
+        return self.conv(F.relu(self.bn(x)))
+
+
+class _PreActHead(nn.Module):
+    """A DSF output head: the reference's ``ConvBlock_PreAct``
+    (net_layers.py:33-34), two pre-activation 1x1 layers via 96 channels."""
+
+    def __init__(self, cin, cout):
+        super().__init__()
+        self.block = nn.ModuleList([_PreActConv(cin, CLS_HEAD_INT_CH),
+                                    _PreActConv(CLS_HEAD_INT_CH, cout)])
+
+    def forward(self, x):
+        return self.block[1](self.block[0](x))
+
+
+def is_dsf(cfg: ModelConfig) -> bool:
+    return cfg.encoder_backbone_name[:3] == "dsf"
+
+
+def nr_orients(cfg: ModelConfig) -> int:
+    """A DSF encoder's orientation count (1 for the others)."""
+    return int(cfg.encoder_backbone_name.split("_")[-1]) if is_dsf(cfg) \
+        else 1
 
 
 class _PatchClassHead(nn.Module):
@@ -175,7 +223,11 @@ class NetDesc(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.backbone, filters = get_backbone(cfg.encoder_backbone_name)
-        self.conv_map = conv2d(filters[-1], filters[-2], 1, bias=False)
+        self.nr_orients = nr_orients(cfg)
+        dsf = is_dsf(cfg)
+        # a DSF net has no conv_map (net_desc.py:111-116)
+        self.conv_map = None if dsf else conv2d(filters[-1], filters[-2], 1,
+                                                bias=False)
         self.decoder_head = nn.ModuleDict()
         self.output_head = nn.ModuleDict()
         self._heads = []  # (decoder name, head name, output key)
@@ -183,6 +235,11 @@ class NetDesc(nn.Module):
             if decoder_name not in cfg.considered_tasks:
                 continue
             if decoder_name == "Patch-Class":
+                if dsf:
+                    raise NotImplementedError(
+                        "the Patch-Class head assumes 512-channel bottom "
+                        "features and is incompatible with dsf encoders, in "
+                        "the reference as well")
                 (_, n_cls), = heads
                 self.decoder_head[decoder_name] = _PatchClassHead(filters[-1],
                                                                   n_cls)
@@ -192,10 +249,12 @@ class NetDesc(nn.Module):
                     (filters[-4], [filters[-4], filters[-5]]),
                     (filters[-5], [filters[-5], filters[-5]])]
             self.decoder_head[decoder_name] = nn.ModuleList(
-                [ConvBlock(cin, unit, 3) for cin, unit in spec])
+                [GConvBlock(cin, unit, 7, self.nr_orients) if dsf
+                 else ConvBlock(cin, unit, 3) for cin, unit in spec])
             outs = nn.ModuleDict()
             for head_name, out_ch in heads:
-                outs[head_name] = _OutputHead(filters[-5], out_ch)
+                outs[head_name] = (_PreActHead if dsf else _OutputHead)(
+                    filters[-5], out_ch)
                 self._heads.append((decoder_name, head_name,
                                     decoder_name.split("#")[0] + "-"
                                     + head_name))
@@ -208,6 +267,8 @@ class NetDesc(nn.Module):
 
     def _conv_map(self, feats):
         bottom = feats[-1]
+        if self.conv_map is None:
+            return feats, bottom
         return feats[:-1] + [self.conv_map(bottom)], bottom
 
     def _branch(self, decoder_name: str, *feats) -> Dict[str, torch.Tensor]:
@@ -216,6 +277,8 @@ class NetDesc(nn.Module):
         prev = feats[-1]
         for idx, blk in enumerate(self.decoder_head[decoder_name]):
             prev = blk(feats[-(idx + 2)] + upsample2x(prev))
+        if self.nr_orients > 1:
+            prev = group_pool(prev, self.nr_orients, "max")
         return {key: self.output_head[decoder_name][head_name](prev)
                 for name, head_name, key in self._heads
                 if name == decoder_name}
@@ -303,11 +366,14 @@ def net_forward(model: NetDesc, imgs: torch.Tensor) -> Dict[str, torch.Tensor]:
 def init_weights(model: NetDesc, generator: Optional[torch.Generator] = None
                  ) -> NetDesc:
     """Reference-equivalent random init: kaiming-normal fan_out convs with
-    zero bias, unit/zero BN, and torch's default uniform init for
-    ``conv_map`` (which the reference never re-initialises)."""
+    zero bias, unit/zero BN, torch's default uniform init for ``conv_map``
+    (which the reference never re-initialises), and the DSF init (normal,
+    std ``sqrt(2 / out * Q)``) for G-convolutions."""
     with torch.no_grad():
         for name, mod in model.named_modules():
-            if isinstance(mod, nn.Conv2d):
+            if isinstance(mod, GConv2d):
+                init_gconv(mod.weight, generator)
+            elif isinstance(mod, nn.Conv2d):
                 w = mod.weight
                 if name == "conv_map":
                     bound = 1.0 / math.sqrt(w[0].numel())

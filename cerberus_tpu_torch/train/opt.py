@@ -10,10 +10,10 @@ validation statistics into epoch metrics (``cerberus_tpu/train/opt.py:
 carries the previous phase's weights; one log directory per phase).
 
 The model is the port's ``NetDesc`` on one device (``cuda`` unless the
-caller or ``CERBERUS_DEFAULT_DEVICE`` says otherwise). Not ported: the
-mesh (data-parallel) path, ROADMAP queue 1 item 7; the width-paired
-lowerings (``paired``), item 9; DSF-CNN encoders, item 6. Each raises
-``NotImplementedError`` naming its item.
+caller or ``CERBERUS_DEFAULT_DEVICE`` says otherwise); every encoder
+trains, the DSF-CNN ones included. Not ported: the mesh (data-parallel)
+path, ROADMAP queue 1 item 7; the width-paired lowerings (``paired``),
+item 9. Each raises ``NotImplementedError`` naming its item.
 """
 from __future__ import annotations
 
@@ -83,10 +83,6 @@ def check_supported(cfg: ModelConfig, mesh=None, paired: bool = False
         raise NotImplementedError(
             "--paired is not ported (ROADMAP queue 1 item 9, the TPU-only "
             "paired lowerings)")
-    if cfg.encoder_backbone_name.startswith("dsf"):
-        raise NotImplementedError(
-            "%s is not ported yet (ROADMAP queue 1 item 6, DSF-CNN)"
-            % cfg.encoder_backbone_name)
 
 
 def build_trainer(config: Dict, train_loaders: Dict, valid_loaders: Dict,

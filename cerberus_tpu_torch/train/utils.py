@@ -22,19 +22,22 @@ def tame_head_logits(state_dict: Dict[str, torch.Tensor],
                      factor: float = 0.05, inst_only: bool = False,
                      zero_bias: bool = False) -> Dict[str, torch.Tensor]:
     """Scale the final head convs so random-init logits are O(1) (JAX
-    ``tame_head_logits``): the ``output_head.*.x.1.conv`` weights and
-    ``decoder_head.Patch-Class.conv2`` (only the ``*.INST`` heads with
-    ``inst_only``; ``zero_bias`` zeroes their biases). Returns a new
-    state_dict; raises ``ValueError`` when no head conv matches."""
+    ``tame_head_logits``): the ``output_head.*.x.1.conv`` weights, a DSF
+    net's ``output_head.*.block.1.conv`` (where the JAX function matches
+    nothing and raises) and ``decoder_head.Patch-Class.conv2`` (only the
+    ``*.INST`` heads with ``inst_only``; ``zero_bias`` zeroes their
+    biases). Returns a new state_dict; raises ``ValueError`` when no head
+    conv matches."""
     out = dict(state_dict)
     hits = 0
+    finals = (".x.1.conv", ".block.1.conv")
     for key, value in state_dict.items():
         name, attr = key.rsplit(".", 1)
         if inst_only:
-            hit = name.endswith(".INST.x.1.conv") and \
+            hit = name.endswith(tuple(".INST" + f for f in finals)) and \
                 name.startswith("output_head.")
         else:
-            hit = (name.endswith(".x.1.conv")
+            hit = (name.endswith(finals)
                    and name.startswith("output_head.")) or \
                 name == "decoder_head.Patch-Class.conv2"
         if not hit:

@@ -5,7 +5,10 @@ counts the convolutions and matrix products, two FLOPs a multiply-add; the
 elementwise work (batch norm, ReLU, upsampling, softmax) is not in it.
 
 Run ``python -m cerberus_tpu_torch.utils.flops`` for the table of the
-default model (ResNet-34, the six heads) on its four forward paths.
+default model (ResNet-34, the six heads) on its four forward paths, then
+of the DSF-CNN nets (the five heads without Patch-Class) on their full
+towers at 448->144. A G-convolution counts its kernel synthesis (an einsum,
+once a forward) besides the convolution.
 """
 from __future__ import annotations
 
@@ -24,11 +27,17 @@ PATHS = (("windowed_full", 448, 144, False),
          ("dense_valid", 1168, 864, True))
 
 
+DSF_BACKBONES = ("dsf_cnn_4", "dsf_cnn_8", "dsf_cnn_12")
+
+
 def default_config(backbone: str = "resnet34") -> ModelConfig:
+    """The six default heads; a DSF-CNN encoder takes the five without
+    Patch-Class, which it cannot serve."""
+    decoders = {k: v for k, v in DEFAULT_DECODER_KWARGS.items()
+                if k != "Patch-Class" or backbone[:3] != "dsf"}
     return ModelConfig.from_kwargs({
-        "encoder_backbone_name": backbone,
-        "decoder_kwargs": DEFAULT_DECODER_KWARGS,
-        "considered_tasks": list(DEFAULT_DECODER_KWARGS)})
+        "encoder_backbone_name": backbone, "decoder_kwargs": decoders,
+        "considered_tasks": list(decoders)})
 
 
 def forward_flops(in_size: int, out_size: int, valid_region: bool,
@@ -54,9 +63,13 @@ def forward_flops(in_size: int, out_size: int, valid_region: bool,
 
 def flop_table() -> list:
     rows = []
-    for name, in_size, out_size, valid in PATHS:
-        counts = forward_flops(in_size, out_size, valid)
-        rows.append({"path": name, "in": in_size, "out": out_size,
+    paths = [("resnet34",) + p for p in PATHS] + [
+        (b, "windowed_full", 448, 144, False) for b in DSF_BACKBONES]
+    for backbone, name, in_size, out_size, valid in paths:
+        counts = forward_flops(in_size, out_size, valid,
+                               default_config(backbone))
+        rows.append({"backbone": backbone, "path": name, "in": in_size,
+                     "out": out_size,
                      "gflop_per_window": counts["flops"] / 1e9,
                      "encoder_gflop_per_window": counts["encoder_flops"] / 1e9,
                      "mflop_per_output_px": counts["flops"] / out_size ** 2

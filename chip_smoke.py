@@ -153,12 +153,33 @@ Phases, each printing JSON lines:
      cerberus_tpu_torch.train.convergence`` (480 steps, then the tile
      CLI on the checkpoint); ``training_seconds``.
 
+  11. dsf (after training; the DSF-CNN family, ``tests/_torch_dsf_helpers.py``
+     models): ``dsf_forward``: dsf_cnn_{4,8,12} (five heads, coefficients
+     x0.05, randomised BN statistics) at 64^2, batch 2, f32 with TF32 off,
+     the card against the CPU within 1e-3; then a seeded dsf_cnn_8 model
+     directory (coefficients x0.01, each INST head's logits standardised
+     on a 448^2 window, synthetic biases) through ``dsf_main_path``: the
+     main path's three images at 448->144, batch 10, bf16, full towers,
+     launch counts reset just before and read just after, every kernel
+     launched, instances in every family, every canvas finite, the
+     families byte-equal to the plain ones; ``dsf_forward_profile``: one
+     profiled batch (device ms, TFLOP/s); ``dsf_tile_cli`` and
+     ``dsf_wsi_cli``: both CLIs' ``main`` on that model directory (the
+     three images; the synthetic slide), launches counted the same way;
+     ``dsf_train_step``: dsf_cnn_8 at 448^2, batch 12, bf16 (step ms,
+     images/s, peak GiB; ``remat=True`` only if plain bf16 runs out of
+     memory, and the line says so); ``dsf_train_parity``: dsf_cnn_4 at
+     64^2, batch 2, the card against the CPU in float64 within 1e-8 /
+     1e-6; ``dsf_seconds``.
+
 The second-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without CUDA, or without the package beside this script, it exits 1 and
 prints no result. It imports nothing of JAX or cerberus_tpu; cv2 and
 PyYAML are imported only by the CLIs' host side (phases 6, 8, 9 and 10)
-and the readers phase.
+and the readers phase. The ``kernels`` line carries each kernel's
+launches on every driven path, the DSF ones (``dsf_main_path_launches``,
+``dsf_tile_cli_launches``, ``dsf_wsi_cli_launches``) included.
 """
 from __future__ import annotations
 
@@ -748,10 +769,13 @@ def phase_forward(torch, manager):
         torch.cuda.empty_cache()
 
 
-def drive_images(torch, manager, images):
+def drive_images(torch, manager, images, tasks=("Gland", "Nuclei"),
+                 pclass=True):
     """``process_image`` on each image (after a warm-up image), launch
-    counts reset just before and read just after. Returns (results,
-    seconds, ms per image, launches, instances per task)."""
+    counts reset just before and read just after; each of ``tasks`` must
+    give instances, and with ``pclass`` the Patch-Class map must be whole.
+    Returns (results, seconds, ms per image, launches, instances per
+    task)."""
     from cerberus_tpu_torch.ops import cuda_build
 
     manager.process_image(images[0])  # warm-up: cuDNN plans, first launches
@@ -769,22 +793,21 @@ def drive_images(torch, manager, images):
     launches = dict(cuda_build.launch_counts)
 
     instances = {}
-    for img, (inst, types, pclass) in zip(images, results):
+    for img, (inst, types, pc) in zip(images, results):
         for task, lab in inst.items():
             if lab.shape != img.shape[:2]:
                 raise AssertionError("%s label map has shape %s"
                                      % (task, lab.shape))
             instances.setdefault(task, []).append(len(np.unique(
                 lab[lab > 0])))
-        if pclass is None or pclass.shape != img.shape[:2] or not (
-                np.isfinite(pclass).all() and 0 <= pclass.min()
-                and pclass.max() <= 8):
+        if pclass and (pc is None or pc.shape != img.shape[:2] or not (
+                np.isfinite(pc).all() and 0 <= pc.min() and pc.max() <= 8)):
             raise AssertionError("patch-class map malformed")
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError("kernel %s was not launched on the main path"
                                  % name)
-    for task in ("Gland", "Nuclei"):
+    for task in tasks:
         if sum(instances.get(task, [])) <= 0:
             raise AssertionError("no %s instances on the main path" % task)
     return results, seconds, per_image_ms, launches, instances
@@ -958,11 +981,12 @@ def phase_main_path_dense(torch, manager):
     return launches
 
 
-def phase_forward_profile(torch, managers):
+def phase_forward_profile(torch, managers, phase="forward_profile"):
     """``torch.profiler`` over one batch of the step on each forward path
     (windowed full towers, windowed valid-region, dense valid-region):
     device time, the top device operations by share, and the achieved
-    TFLOP/s against the convolutions' FLOP count (``utils/flops.py``)."""
+    TFLOP/s against the convolutions' FLOP count (``utils/flops.py``).
+    Returns the line's paths."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1006,11 +1030,11 @@ def phase_forward_profile(torch, managers):
             "mflop_per_output_px": flops / batch / out_sz ** 2 / 1e6,
             "top_ops": [{"name": k, "ms": v / 1e3,
                          "share": v / 1e3 / device_ms} for k, v in top]}
-    emit({"phase": "forward_profile", "paths": paths,
-          "peak_bf16_tflop_per_s": 989})
+    emit({"phase": phase, "paths": paths, "peak_bf16_tflop_per_s": 989})
     for name, row in paths.items():
         if not row["device_ms"]:
             raise AssertionError("profiler saw no device time for %s" % name)
+    return paths
 
 
 def write_slide(slide_dir):
@@ -1214,15 +1238,18 @@ def phase_wsi(torch, manager):
     return launches
 
 
-def run_wsi_cli(torch, work, input_dir, extra_argv=(), env=None):
+def run_wsi_cli(torch, work, input_dir, extra_argv=(), env=None,
+                write=None):
     """``python -m cerberus_tpu_torch.run_infer_wsi`` as a user runs it (its
     ``main``, in this process) with ``--gpu=0`` on the slides in
     ``input_dir`` and the synthetic model, host side included (cv2
     contours and resizes, the ``.dat`` pickle, the tissue map), with
     ``extra_argv`` added and ``env`` set for the run. Launch counts are
     reset just before and read just after; the per-phase spans come from
-    the per-slide log. Returns a dict: ``dat`` (the one slide's payload),
-    ``seconds``, ``spans``, ``launches``, ``argv``, ``pclass_classes``."""
+    the per-slide log. ``write(path)`` writes the model directory (the
+    synthetic ResNet-34 model by default). Returns a dict: ``dat`` (the one
+    slide's payload), ``seconds``, ``spans``, ``launches``, ``argv``,
+    ``pclass_classes``."""
     import glob
     import pickle
     import re
@@ -1230,7 +1257,10 @@ def run_wsi_cli(torch, work, input_dir, extra_argv=(), env=None):
     from cerberus_tpu_torch import run_infer_wsi
     from cerberus_tpu_torch.ops import cuda_build
 
-    write_model(torch, os.path.join(work, "model"), True)
+    if write is None:
+        write_model(torch, os.path.join(work, "model"), True)
+    else:
+        write(os.path.join(work, "model"))
     argv = ["--gpu=0", "--model=%s/model" % work,
             "--input_dir=%s" % input_dir, "--output_dir=%s/out" % work,
             "--cache_path=%s/cache/" % work, "--logging_dir=%s/log" % work,
@@ -1272,16 +1302,19 @@ def run_wsi_cli(torch, work, input_dir, extra_argv=(), env=None):
             "pclass_classes": pclass_classes}
 
 
-def check_cli_outputs(run, phase, hw=WSI_HW, kernels=True) -> None:
+def check_cli_outputs(run, phase, hw=WSI_HW, kernels=True,
+                      tasks=("Nuclei", "Gland"), pclass=True) -> None:
     """The checks every WSI CLI phase makes: the slide's dimensions, a
-    tissue map of classes in [0, 9), nuclei and gland instances, and (for
-    the card's families) every kernel launched."""
+    tissue map of classes in [0, 9) (with ``pclass``), instances of each
+    of ``tasks``, and (for the card's families) every kernel launched."""
     dat, classes = run["dat"], run["pclass_classes"]
-    if [int(v) for v in dat["proc_dimensions"]] != list(hw) or not (
-            classes and 0 <= min(classes) and max(classes) <= 8):
+    if [int(v) for v in dat["proc_dimensions"]] != list(hw) or (
+            pclass and not (classes and 0 <= min(classes)
+                            and max(classes) <= 8)):
         raise AssertionError("%s: WSI CLI outputs malformed" % phase)
-    if len(dat.get("Nuclei", {})) <= 0 or len(dat.get("Gland", {})) <= 0:
-        raise AssertionError("%s: no nuclei or gland instances" % phase)
+    if any(len(dat.get(task, {})) <= 0 for task in tasks):
+        raise AssertionError("%s: no instances of one of %s"
+                             % (phase, tasks))
     for name, count in run["launches"].items():
         if kernels and count <= 0:
             raise AssertionError("%s: kernel %s was not launched"
@@ -2423,30 +2456,47 @@ def phase_train_step(torch, dev):
     """The default model (ResNet-34, six heads) training at 448^2, batch
     12, on ``tests/_torch_train_helpers.make_batch``'s synthetic batch:
     bf16 and f32 (cuDNN's default TF32), bf16 with ``remat=True``, bf16
-    with ``grad_accum=4``. Per run: median step ms of 10 steps after 3
-    warm-up ones (the host batch copied in through pinned memory each
-    step, the loss read back), images/s, peak GiB, the profiled step's
-    device-busy share and top five device operations, and model TFLOP/s
-    (3x the full-tower forward FLOPs of ``utils/flops.py``) as a share of
-    the card's dense bf16 peak. Every loss must be finite and the BN
-    statistics must move."""
+    with ``grad_accum=4`` (``train_step_runs``)."""
     from cerberus_tpu_torch.config import ModelConfig
     from cerberus_tpu_torch.models.net_desc import NetDesc, init_weights
-    from cerberus_tpu_torch.train.steps import make_train_step
     from cerberus_tpu_torch.train.utils import tame_head_logits
+
+    kwargs = train_helpers().model_kwargs("resnet34")
+    state = tame_head_logits(init_weights(
+        NetDesc(ModelConfig.from_kwargs(kwargs)),
+        torch.Generator().manual_seed(0)).state_dict())
+    runs, step_flops = train_step_runs(torch, dev, kwargs, state, TRAIN_RUNS,
+                                       "backbone.bn1.running_var")
+    emit({"phase": "train_step", "model": "resnet34, six heads",
+          "hw": TRAIN_HW, "batch": TRAIN_BATCH,
+          "model_gflop_per_step": step_flops / 1e9,
+          "peak_bf16_dense_tflop_per_s": 989, "runs": runs})
+    return runs
+
+
+def train_step_runs(torch, dev, kwargs, state, runs_spec, bn_key):
+    """Training of the model ``kwargs`` from ``state`` at 448^2, batch 12,
+    on ``make_batch``'s synthetic batch, once per ``(name, bf16, remat,
+    grad_accum)`` of ``runs_spec``. Per run: median step ms of 10 steps
+    after 3 warm-up ones (the host batch copied in through pinned memory
+    each step, the loss read back), images/s, peak GiB, the profiled
+    step's device-busy share and top five device operations, and model
+    TFLOP/s (3x the full-tower forward FLOPs of ``utils/flops.py``) as a
+    share of the card's dense bf16 peak. Every loss must be finite and the
+    BN statistics ``bn_key`` must move. Returns (runs, step FLOPs)."""
+    from cerberus_tpu_torch.config import ModelConfig
+    from cerberus_tpu_torch.models.net_desc import NetDesc
+    from cerberus_tpu_torch.train.steps import make_train_step
     from cerberus_tpu_torch.utils.flops import forward_flops
 
     helpers = train_helpers()
-    kwargs = helpers.model_kwargs("resnet34")
     cfg = ModelConfig.from_kwargs(kwargs)
-    state = tame_head_logits(init_weights(
-        NetDesc(cfg), torch.Generator().manual_seed(0)).state_dict())
     batch = helpers.make_batch(np.random.default_rng(0), n=TRAIN_BATCH,
-                               hw=TRAIN_HW)
+                               hw=TRAIN_HW, cfg=cfg)
     step_flops = 3 * forward_flops(TRAIN_HW, TRAIN_HW, False, cfg,
                                    TRAIN_BATCH)["flops"]
     runs = {}
-    for name, bf16, remat, accum in TRAIN_RUNS:
+    for name, bf16, remat, accum in runs_spec:
         model = NetDesc(cfg)
         model.load_state_dict(state)
         model.to(dev)
@@ -2455,7 +2505,7 @@ def phase_train_step(torch, dev):
             compute_dtype=torch.bfloat16 if bf16 else torch.float32,
             remat=remat, grad_accum=accum, model=model)
         gen = torch.Generator(device=dev).manual_seed(1)
-        stats0 = model.backbone.bn1.running_var.clone()
+        stats0 = model.state_dict()[bn_key].clone()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         losses, times = [], []
@@ -2480,17 +2530,13 @@ def phase_train_step(torch, dev):
             "model_tflop_per_s": step_flops / (ms * 1e-3) / 1e12,
             "share_of_bf16_dense_peak": step_flops / (ms * 1e-3) / 989e12,
             "loss_first": losses[0], "loss_last": losses[-1]}
-        moved = not torch.equal(model.backbone.bn1.running_var, stats0)
+        moved = not torch.equal(model.state_dict()[bn_key], stats0)
         del model, step
         torch.cuda.empty_cache()
         if not (all(np.isfinite(losses)) and moved and dev_ms > 0):
             raise AssertionError("train_step %s: losses %s, BN moved %s"
                                  % (name, losses, moved))
-    emit({"phase": "train_step", "model": "resnet34, six heads",
-          "hw": TRAIN_HW, "batch": TRAIN_BATCH,
-          "model_gflop_per_step": step_flops / 1e9,
-          "peak_bf16_dense_tflop_per_s": 989, "runs": runs})
-    return runs
+    return runs, step_flops
 
 
 def phase_train_parity(torch, dev):
@@ -2686,6 +2732,287 @@ def phase_training(torch, dev):
     emit({"phase": "training_seconds", **seconds})
 
 
+DSF_ARCHS = ("dsf_cnn_4", "dsf_cnn_8", "dsf_cnn_12")
+DSF_ARCH = "dsf_cnn_8"  # the served and trained DSF model
+DSF_FORWARD = (64, 2)  # dsf_forward: side and batch of the f32 check
+
+
+def dsf_helpers():
+    """``tests/_torch_dsf_helpers.py``: seeded random DSF NetDescs and the
+    synthetic INST recipe."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_dsf_helpers
+
+    return _torch_dsf_helpers
+
+
+def write_dsf_model(torch, path, dev):
+    """A seeded random dsf_cnn_8 NetDesc with the five heads a DSF encoder
+    serves, written as a model directory: G-conv coefficients x0.01
+    (``GSCALE_SERVED``), default BN statistics, and each INST head's last
+    conv rewritten so that its logits on a 448^2 synthetic window
+    (computed on the card, f32) have the synthetic means and spread
+    (``synthetic_inst_heads``). Returns (model kwargs, target codes)."""
+    from cerberus_tpu_torch.config import DEFAULT_TARGET_CODE
+
+    helpers = dsf_helpers()
+    model, kwargs = helpers.dsf_model(DSF_ARCH, seed=0,
+                                      gscale=helpers.GSCALE_SERVED,
+                                      random_bn=False)
+    x = torch.from_numpy(synthetic_image((448, 448), 7)).permute(
+        2, 0, 1)[None].float().div(255.0).to(dev)
+    with tf32_off(torch):
+        helpers.synthetic_inst_heads(model.to(dev), x)
+    os.makedirs(path, exist_ok=True)
+    torch.save({"desc": {k: v.cpu() for k, v in model.state_dict().items()}},
+               os.path.join(path, "weights.tar"))
+    codes = {k: v for k, v in DEFAULT_TARGET_CODE.items()
+             if k != "Patch-Class"}
+    with open(os.path.join(path, "settings.yml"), "w") as handle:
+        json.dump({"dataset_kwargs": {"req_target_code": codes},
+                   "model_kwargs": kwargs}, handle)
+    del model
+    torch.cuda.empty_cache()
+    return kwargs, codes
+
+
+def phase_dsf_forward(torch, dev):
+    """dsf_cnn_{4,8,12} (the five heads, ``tests/test_dsf_cnn.py``'s
+    recipe: coefficients x0.05, randomised BN statistics) at 64^2, batch
+    2, f32 with TF32 off: the card's heads against the CPU's within
+    ``FWD_REL_TOL`` of each head's largest magnitude."""
+    import copy
+
+    helpers = dsf_helpers()
+    hw, batch = DSF_FORWARD
+    x = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (batch, 3, hw, hw)).astype(np.float32) / 255.0)
+    errs, magnitude = {}, {}
+    for arch in DSF_ARCHS:
+        model, _ = helpers.dsf_model(arch)
+        with tf32_off(torch), torch.no_grad():
+            cpu = model(x)
+            card = {k: v.cpu() for k, v in copy.deepcopy(model).to(dev)(
+                x.to(dev)).items()}
+        errs[arch], magnitude[arch] = {}, {}
+        for head, ref in cpu.items():
+            got = card[head]
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise AssertionError("dsf_forward %s %s malformed"
+                                     % (arch, head))
+            errs[arch][head] = rel_err(got, ref)
+            magnitude[arch][head] = float(ref.abs().max())
+        del model
+        torch.cuda.empty_cache()
+    emit({"phase": "dsf_forward", "hw": hw, "batch": batch,
+          "compute": "f32, TF32 off", "rel_err": errs,
+          "max_abs_logit": magnitude, "tol": FWD_REL_TOL})
+    bad = [(a, h, e) for a, per in errs.items() for h, e in per.items()
+           if not e <= FWD_REL_TOL]
+    if bad:
+        raise AssertionError("dsf_forward off tolerance: %s" % bad)
+
+
+def phase_dsf_main_path(torch, manager):
+    """The tile main path with the DSF model (448->144, batch 10, bf16,
+    full towers: DSF has no valid-region plan) on the main path's three
+    images through ``process_image``, launch counts reset just before and
+    read just after: every kernel launched, instances in every family;
+    then the kernel families against the plain families on the same
+    device canvases byte for byte, every canvas finite."""
+    images = main_path_images()
+    _, seconds, per_image_ms, launches, instances = drive_images(
+        torch, manager, images, tasks=("Gland", "Lumen", "Nuclei"),
+        pclass=False)
+    line = path_numbers(manager, images, seconds, per_image_ms, instances,
+                        launches)
+    split, outs = split_times(torch, manager, images, plain=True)
+    finite = [bool(torch.isfinite(canvas).all()) for canvas, _ in outs]
+    emit({"phase": "dsf_main_path", "arch": DSF_ARCH, "valid_region": False,
+          **line, "tiles_448": line["windows"],
+          "tiles_per_s": line["windows_per_s"],
+          "families_vs_plain": "byte_equal", "canvases_finite": finite,
+          **split})
+    if not all(finite):
+        raise AssertionError("dsf_main_path: a canvas holds NaN or Inf")
+    return launches
+
+
+def phase_dsf_tile_cli(torch, model_dir):
+    """The tile CLI's ``main`` (``--gpu=0``, batch 10) on the DSF model
+    directory and the main path's three images written as PNGs: seconds,
+    output Mpx/s, every kernel launched, and ``.mat`` files with instances
+    of every family (no Patch-Class map: a DSF net has no such head)."""
+    import cv2
+
+    from cerberus_tpu_torch.ops import cuda_build
+
+    work = os.path.join(cuda_build.BUILD_DIR, "smoke_dsf_tile")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        images = {"main%d" % i: img
+                  for i, img in enumerate(main_path_images())}
+        os.makedirs(os.path.join(work, "input"))
+        for name, img in images.items():
+            cv2.imwrite(os.path.join(work, "input", name + ".png"),
+                        cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        out = os.path.join(work, "out")
+        seconds, launches = run_tile_cli(torch, [
+            "--model=%s" % model_dir,
+            "--input_dir=%s" % os.path.join(work, "input"),
+            "--output_dir=%s" % out, "--batch_size=10"])
+        import scipy.io as sio
+
+        instances = {task: [int(len(np.unique(sio.loadmat(os.path.join(
+            out, "%s_mat" % task, name + ".mat"))["inst_map"])) - 1)
+            for name in images] for task in ("gland", "lumen", "nuclei")}
+        pclass_written = os.path.exists(os.path.join(out, "pclass_mat"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    px = sum(img.shape[0] * img.shape[1] for img in images.values())
+    emit({"phase": "dsf_tile_cli", "arch": DSF_ARCH, "batch": 10,
+          "images": [list(i.shape[:2]) for i in images.values()],
+          "seconds": seconds, "output_mpx_per_s": px / seconds / 1e6,
+          "instances": instances, "pclass_mat_written": pclass_written,
+          "launches": launches})
+    check_launches("dsf_tile_cli", launches)
+    if pclass_written or not all(sum(v) > 0 for v in instances.values()):
+        raise AssertionError("dsf_tile_cli: outputs malformed")
+    return launches
+
+
+def phase_dsf_wsi_cli(torch, model_dir):
+    """The WSI CLI's ``main`` (``--gpu=0``, resident loop, batch 30) on the
+    wsi phase's synthetic slide with the DSF model directory."""
+    from cerberus_tpu_torch.ops import cuda_build
+
+    work = os.path.join(cuda_build.BUILD_DIR, "smoke_dsf_wsi")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        write_slide(os.path.join(work, "input", "slide"))
+        run = run_wsi_cli(torch, work, os.path.join(work, "input"),
+                          ("--wsi_file_ext=.npy",),
+                          write=lambda path: shutil.copytree(model_dir,
+                                                             path))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit_cli("dsf_wsi_cli", run, arch=DSF_ARCH)
+    check_cli_outputs(run, "dsf_wsi_cli", tasks=TASKS, pclass=False)
+    return run["launches"]
+
+
+def phase_dsf_train_step(torch, dev):
+    """dsf_cnn_8 (the five heads, coefficients x0.01, heads tamed) training
+    at 448^2, batch 12, bf16 (``train_step_runs``). Should that run out of
+    memory, the line says so and the run is repeated with
+    ``remat=True``."""
+    from cerberus_tpu_torch.train.utils import tame_head_logits
+
+    helpers = dsf_helpers()
+    model, kwargs = helpers.dsf_model(DSF_ARCH, seed=0,
+                                      gscale=helpers.GSCALE_SERVED,
+                                      random_bn=False)
+    state = tame_head_logits(model.state_dict())
+    bn_key = "backbone.d1.units.0.norm1.norm.running_var"
+    setting, oom = "bf16", None
+    try:
+        runs, step_flops = train_step_runs(
+            torch, dev, kwargs, state, (("bf16", True, False, 1),), bn_key)
+    except torch.cuda.OutOfMemoryError as exc:
+        torch.cuda.empty_cache()
+        setting, oom = "bf16_remat", str(exc).splitlines()[0]
+        runs, step_flops = train_step_runs(
+            torch, dev, kwargs, state, (("bf16_remat", True, True, 1),),
+            bn_key)
+    emit({"phase": "dsf_train_step", "model": "%s, five heads" % DSF_ARCH,
+          "hw": TRAIN_HW, "batch": TRAIN_BATCH, "setting": setting,
+          "plain_bf16_out_of_memory": oom,
+          "model_gflop_per_step": step_flops / 1e9,
+          "peak_bf16_dense_tflop_per_s": 989, "runs": runs})
+
+
+def phase_dsf_train_parity(torch, dev):
+    """The dsf_cnn_4 train step (the five heads, coefficients x0.05,
+    randomised BN statistics, heads tamed) on the card against the CPU's
+    (``tests/_torch_train_helpers.card_parity``) at 64^2, batch 2, TF32
+    off: float64 within 1e-8 (loss, BN statistics) and 1e-6 of each
+    gradient tensor's largest magnitude; f32 loss and BN statistics within
+    1e-4."""
+    from cerberus_tpu_torch.config import ModelConfig
+    from cerberus_tpu_torch.train.utils import tame_head_logits
+
+    helpers, dsf = train_helpers(), dsf_helpers()
+    model, kwargs = dsf.dsf_model("dsf_cnn_4")
+    state = tame_head_logits(model.state_dict())
+    batch = helpers.make_batch(np.random.default_rng(0), n=2, hw=64,
+                               cfg=ModelConfig.from_kwargs(kwargs))
+    keep = torch.ones((2, 1, 1, 1), dtype=torch.bool)  # no Patch-Class
+    with tf32_off(torch):
+        report = helpers.card_parity(dev, kwargs, state, batch, keep)
+    report.pop("card_f32")
+    emit({"phase": "dsf_train_parity", "setting": "dsf_cnn_4, five heads, "
+          "64^2, batch 2, TF32 off", "tolerances": {
+              "f64": helpers.PARITY_F64_TOLS,
+              "f32_loss_rel": helpers.PARITY_LOSS_TOL,
+              "f32_bn_rel": helpers.PARITY_BN_TOL}, **report})
+    if not report["ok"]:
+        raise AssertionError("dsf_train_parity: the card's step disagrees "
+                             "with the CPU's")
+
+
+def phase_dsf(torch, dev):
+    """The DSF-CNN phases, with their seconds: ``dsf_forward``, then the
+    served dsf_cnn_8 model directory through ``dsf_main_path`` (and one
+    profiled batch, ``dsf_forward_profile``), ``dsf_tile_cli`` and
+    ``dsf_wsi_cli``, then ``dsf_train_step`` and ``dsf_train_parity``.
+    Returns the launches of the main path and both CLIs."""
+    from cerberus_tpu_torch.infer import tile
+    from cerberus_tpu_torch.ops import cuda_build
+
+    seconds = {}
+    t0 = time.perf_counter()
+    phase_dsf_forward(torch, dev)
+    seconds["dsf_forward"] = time.perf_counter() - t0
+    work = os.path.join(cuda_build.BUILD_DIR, "smoke_dsf_model")
+    shutil.rmtree(work, ignore_errors=True)
+    launches = {}
+    try:
+        t0 = time.perf_counter()
+        kwargs, codes = write_dsf_model(torch, work, dev)
+        seconds["write_model"] = time.perf_counter() - t0
+        manager = tile.InferManager(
+            checkpoint_path=os.path.join(work, "weights.tar"),
+            decoder_dict=codes, model_args=kwargs, device="cuda",
+            batch_size=10,
+            patch_input_shape=448, patch_output_shape=144)
+        t0 = time.perf_counter()
+        launches["dsf_main_path"] = phase_dsf_main_path(torch, manager)
+        phase_forward_profile(torch, [("dsf_cnn_8_windowed_full", manager,
+                                       False)], "dsf_forward_profile")
+        seconds["dsf_main_path"] = time.perf_counter() - t0
+        del manager
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launches["dsf_tile_cli"] = phase_dsf_tile_cli(torch, work)
+        seconds["dsf_tile_cli"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches["dsf_wsi_cli"] = phase_dsf_wsi_cli(torch, work)
+        seconds["dsf_wsi_cli"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    for name, fn in (("dsf_train_step",
+                      lambda: phase_dsf_train_step(torch, dev)),
+                     ("dsf_train_parity",
+                      lambda: phase_dsf_train_parity(torch, dev))):
+        t0 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    emit({"phase": "dsf_seconds", **seconds})
+    return launches
+
+
 def run() -> int:
     import torch
 
@@ -2739,6 +3066,7 @@ def run() -> int:
     legacy_run = phase_wsi_cli_legacy(torch, resident_run)
     phase_wsi_cli_cpu(torch, legacy_run)
     phase_training(torch, dev)
+    dsf_launches = phase_dsf(torch, dev)
 
     kernels = []
     for name in cuda_build.LAUNCH_COUNTERS:
@@ -2752,6 +3080,8 @@ def run() -> int:
                             legacy_run["launches"][name],
                         **{"%s_launches" % path: counts[name]
                            for path, counts in serve_launches.items()},
+                        **{"%s_launches" % path: counts[name]
+                           for path, counts in dsf_launches.items()},
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "device_ms": row["device_ms"],
                         "device_ms_from": row["device_ms_from"],

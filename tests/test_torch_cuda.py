@@ -474,3 +474,53 @@ def test_remat_equals_plain_on_card_f32(dev):
         spread = float((again[1][name] - ref).abs().max())
         tol = 1e-4 * float(ref.abs().max()) + 4 * spread
         assert float((remat[1][name] - ref).abs().max()) <= tol, name
+
+
+def test_gconv_bf16_autocast_synthesises_in_f32(dev):
+    """Under bf16 autocast a G-conv synthesises its kernel in f32 and casts
+    it once: the same bits as ``F.conv2d`` on the bf16 input with the f32
+    kernel cast to bf16 by hand."""
+    from cerberus_tpu_torch.models.gconv import GConv2d, init_gconv
+
+    gen = torch.Generator().manual_seed(0)
+    for o_in, k in ((1, 7), (8, 5)):
+        mod = GConv2d(6, 4, k, o_in, 8)
+        init_gconv(mod.weight, gen)
+        mod.to(dev)
+        x = torch.randn((2, o_in * 6, 40, 40), generator=gen).to(dev)
+        with torch.no_grad():
+            kernel = mod.kernel()
+            assert kernel.dtype == torch.float32
+            want = torch.nn.functional.conv2d(
+                x.bfloat16(), kernel.bfloat16(), padding=k // 2)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                assert mod.kernel().dtype == torch.float32
+                got = mod(x)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, want), (o_in, k)
+
+
+def test_dsf_forward_on_card_matches_cpu(dev):
+    """dsf_cnn_{4,8,12} (the five heads, coefficients x0.05, randomised BN
+    statistics) at 32^2, batch 2, f32 with TF32 off: the card's heads
+    within 1e-3 of the CPU's largest magnitude."""
+    import copy
+
+    from _torch_dsf_helpers import dsf_model
+
+    x = torch.rand((2, 3, 32, 32), generator=torch.Generator().manual_seed(1))
+    saved = _tf32_off()
+    try:
+        for arch in ("dsf_cnn_4", "dsf_cnn_8", "dsf_cnn_12"):
+            model, _ = dsf_model(arch)
+            with torch.no_grad():
+                cpu = model(x)
+                card = copy.deepcopy(model).to(dev)(x.to(dev))
+            for head, ref in cpu.items():
+                got = card[head].cpu()
+                assert torch.isfinite(got).all(), (arch, head)
+                err = float((got - ref).abs().max()) / max(
+                    1.0, float(ref.abs().max()))
+                assert err <= 1e-3, (arch, head, err)
+    finally:
+        _tf32_restore(saved)

@@ -112,13 +112,55 @@ def test_cli_refuses_what_is_not_ported(tmp_path, settings, argv, item):
                         "--log_dir=%s" % (tmp_path / "l")] + argv)
 
 
-def test_mesh_and_dsf_are_not_ported():
-    cfg = ModelConfig.from_kwargs({"encoder_backbone_name": "dsf_cnn_8"})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        opt.check_supported(cfg)
+def test_mesh_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 7"):
         opt.check_supported(ModelConfig.from_kwargs(MODEL_KWARGS),
                             mesh=object())
+
+
+def test_cli_trains_dsf_cnn_two_steps(tmp_path, monkeypatch):
+    """``run_train`` with a dsf_cnn_4 encoder (Gland and Gland#TYPE; a DSF
+    net has no Patch-Class head) at 32^2: two steps, finite losses, a
+    train state whose G-conv leaves are ``gweight`` with Adam moments, and
+    G batch-norm statistics that moved."""
+    monkeypatch.setenv("CERBERUS_DEFAULT_DEVICE", "cpu")
+    torch.set_num_threads(2)
+    data = str(tmp_path / "data")
+    make_dataset(data, n=8)
+    decoders = {k: v for k, v in MODEL_KWARGS["decoder_kwargs"].items()
+                if k != "Patch-Class"}
+    settings = str(tmp_path / "settings.yml")
+    with open(settings, "w") as handle:
+        yaml.safe_dump({
+            "model_kwargs": {"encoder_backbone_name": "dsf_cnn_4",
+                             "decoder_kwargs": decoders,
+                             "considered_tasks": list(decoders)},
+            "optimizer_kwargs": {"lr": 1.0e-3, "betas": [0.9, 0.999]},
+            "loss_kwargs": {"loss_info": {
+                k: v for k, v in LOSS["loss_info"].items()
+                if k != "Patch-Class"}},
+            "dataset_kwargs": {
+                "req_target_code": {k: v for k, v in TARGET_CODE.items()
+                                    if k != "Patch-Class"},
+                "train_dir": data, "input_shape": 32, "output_shape": 32}},
+            handle)
+    log_dir = str(tmp_path / "logs")
+    net = run_train.main(["--settings=%s" % settings,
+                          "--log_dir=%s" % log_dir, "--nr_epochs=1",
+                          "--batch_size=4", "--per_n_steps=1"])
+    assert net.step == 2
+    with open(os.path.join(log_dir, "stats.yml")) as handle:
+        stats = yaml.safe_load(handle)
+    assert np.isfinite(stats["0"]["train-overall_loss"])
+    params, opt_state, step = convert.load_train_state(
+        os.path.join(log_dir, "net_step-000001.tar"))
+    moments = opt_state["inner_states"]["train"]["inner_state"]["0"]
+    assert step == int(moments["count"]) == 2
+    assert params["backbone.i1"]["gweight"].shape == (2, 1, 11, 1, 1, 1, 3,
+                                                     10)
+    assert moments["mu"]["backbone.d4.transition.conv"]["gweight"].any()
+    bn = params["backbone.d1.units.0.norm1.norm"]
+    assert not np.array_equal(bn["mean"], np.zeros_like(bn["mean"]))
 
 
 def test_cli_defaults_to_cuda(tmp_path, settings, monkeypatch):

@@ -9,6 +9,10 @@ card (``ops/gpu_postproc.py``) with hand-written CUDA kernels for connected
 components, the 16384-bin histogram and the marker watershed
 (``csrc/``, built at first use by ``ops/cuda_build.py``).
 
+Multi-device runs (``parallel/``, ``ops/sharded_cc.py``): batch-sharded
+inference over a device mesh, the row-sharded CC and watershed, the
+multi-process slide queue and the data-parallel train step.
+
 The package imports neither JAX nor anything of ``cerberus_tpu``. Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

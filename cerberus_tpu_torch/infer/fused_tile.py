@@ -48,7 +48,8 @@ def run_fused_tile(manager, img: np.ndarray) -> torch.Tensor:
                          device=device)
     for start in range(0, len(tls), batch_size):
         tl = tls[start:start + batch_size]
-        out = manager.step_padded(gather_windows(dev_img, tl[:, 0], in_shape))
+        out = manager.step_padded(gather_windows(dev_img, tl[:, 0], in_shape),
+                                  sharded=False)
         canvas[window_index(tl[:, 1], out_shape, device)] = out.to(
             canvas.dtype)
     return canvas[src_pos[0]:src_pos[0] + img.shape[0],

@@ -10,6 +10,13 @@ step is bound). Without a checkpoint the weights are random, from a seeded
 ``torch.Generator``. As the JAX manager does, it also takes ``params=``, a
 JAX-layout tree of numpy arrays, in place of a checkpoint; the checkpoint
 may be a torch file or a native msgpack one (``models/convert.load_checkpoint``).
+
+``mesh`` (``cerberus_tpu/infer/manager.py:49-67, 93-98``): a
+single-controller ``parallel.mesh.Mesh`` shards every batch of
+``run_step`` over its devices (``make_sharded_infer_step``), the
+DataParallel of the reference (the CLIs build it from a ``--gpu``
+list). Batches are gathered, and canvases stitched, on
+``mesh.devices[0]``, which is the manager's ``device``.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 from ..config import ModelConfig
 from ..models.convert import load_checkpoint, state_dict_from_jax_params
 from ..models.net_desc import NetDesc, init_weights
+from ..parallel.mesh import make_sharded_infer_step, normalize_device
 from ..utils.debug import default_device
 from .steps import make_infer_step
 
@@ -40,13 +48,26 @@ class InferManager:
     def __init__(self, checkpoint_path: Optional[str] = None,
                  decoder_dict: Optional[dict] = None,
                  model_args: Optional[dict] = None,
-                 device=None, params: Optional[dict] = None, **kwargs):
+                 device=None, params: Optional[dict] = None, mesh=None,
+                 **kwargs):
         """On the card the forward computes in bf16 and the canvas is f16
-        (the JAX package's numerics policy); on the CPU both are f32."""
+        (the JAX package's numerics policy); on the CPU both are f32.
+        ``mesh``: None or a single-controller mesh (its first device is
+        the manager's)."""
         self.checkpoint_path = checkpoint_path
         self.decoder_dict = decoder_dict or {}
         self.model_args = model_args or {}
+        if mesh is not None:
+            if mesh.group is not None:
+                raise ValueError("inference takes a single-controller mesh, "
+                                 "not a process mesh")
+            if device is not None and normalize_device(
+                    resolve_device(device)) != mesh.devices[0]:
+                raise ValueError("device %s is not the mesh's first device "
+                                 "%s" % (device, mesh.devices[0]))
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        self.mesh = mesh
         on_card = self.device.type == "cuda"
         self.compute_dtype = torch.bfloat16 if on_card else torch.float32
         self.out_dtype = torch.float16 if on_card else torch.float32
@@ -63,12 +84,33 @@ class InferManager:
             model.load_state_dict(load_checkpoint(self.checkpoint_path),
                                   strict=True)
         self.model = model.to(self.device).eval()
-        self._step_cache: Dict[int, Callable] = {}
+        self._step_cache: Dict[object, Callable] = {}
 
     def run_step(self, batch: torch.Tensor, output_shape: int) -> torch.Tensor:
-        """uint8 NHWC batch on the device -> (N, out, out, C) tensor."""
+        """uint8 NHWC batch on the device -> (N, out, out, C) tensor; with
+        a mesh the batch is sharded over it (any batch size)."""
         if output_shape not in self._step_cache:
-            self._step_cache[output_shape] = make_infer_step(
-                self.model, self.cfg, output_shape, self.compute_dtype,
-                self.out_dtype)
+            if self.mesh is not None:
+                self._step_cache[output_shape] = make_sharded_infer_step(
+                    self.model, self.cfg, self.mesh, output_shape,
+                    self.compute_dtype, self.out_dtype)
+            else:
+                self._step_cache[output_shape] = self._device_step(
+                    output_shape)
         return self._step_cache[output_shape](batch)
+
+    def device_step(self, batch: torch.Tensor,
+                    output_shape: int) -> torch.Tensor:
+        """``run_step`` on the manager's device alone, mesh or not (the
+        fused tile backend's step, as JAX's ``run_fused_tile`` reads no
+        mesh)."""
+        if self.mesh is None:
+            return self.run_step(batch, output_shape)
+        key = ("device", output_shape)
+        if key not in self._step_cache:
+            self._step_cache[key] = self._device_step(output_shape)
+        return self._step_cache[key](batch)
+
+    def _device_step(self, output_shape: int) -> Callable:
+        return make_infer_step(self.model, self.cfg, output_shape,
+                               self.compute_dtype, self.out_dtype)

@@ -209,14 +209,17 @@ class InferManager(BaseInferManager):
         batch cache over this one image)."""
         return next(self.cached_canvases([(None, img)]))[2]
 
-    def step_padded(self, batch: torch.Tensor) -> torch.Tensor:
+    def step_padded(self, batch: torch.Tensor,
+                    sharded: bool = True) -> torch.Tensor:
         """The step on ``batch`` zero-padded to the batch size; the padding
-        rows' outputs are dropped."""
+        rows' outputs are dropped. ``sharded=False``: on the manager's
+        device alone, mesh or not (``device_step``)."""
         valid, batch_size = batch.shape[0], int(self.batch_size)
         if valid < batch_size:
             batch = torch.cat([batch, batch.new_zeros(
                 (batch_size - valid, *batch.shape[1:]))])
-        return self.run_step(batch, int(self.patch_output_shape))[:valid]
+        step = self.run_step if sharded else self.device_step
+        return step(batch, int(self.patch_output_shape))[:valid]
 
     def _stitch(self, outputs, patch_info, padded_hw, src_pos, src_hw):
         canvas = stitch_canvas(outputs, patch_info[:, 1, 0], padded_hw,

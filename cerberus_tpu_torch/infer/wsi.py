@@ -33,8 +33,16 @@ disk reads, resizes, contours and dedup. The device half of each step
 (``boundary_tile_labels``, ``region_instance_map``'s device part) needs
 neither cv2 nor PyYAML; the host half imports cv2 inside its functions.
 
-Not ported here (ROADMAP): the mesh branch and the multi-host slide
-sharding, the region-program warmer (torch compiles nothing).
+The mesh branch (``cerberus_tpu/infer/wsi.py:244-248, 469-473, 613-615,
+766-769``): with a manager ``mesh`` the legacy loop runs (the resident
+loop only without one), every batch is sharded over the mesh, and under
+the ``gpu`` backend the nuclei tiles (``boundary_tile_labels``, after
+``pad_to_512``) and the tissue regions' family run row-sharded over it
+(``ops/sharded_cc.py``); the ``cpu`` backend and its pool never see it.
+Several processes (``parallel/distributed.initialize``) each take a
+strided share of the slide list, with a ``_host<rank>`` cache
+(``process_wsi_list``, JAX :836-844). JAX's region-program warmer has no
+counterpart: torch compiles nothing.
 """
 from __future__ import annotations
 
@@ -59,6 +67,7 @@ from ..ops.cc_cpu import label as cc_label
 from ..ops.device_postproc import KERNELS, Impl
 from ..ops.gpu_postproc import GPU_POSTPROC_FUNC_DICT, pad_to_512
 from ..ops.postproc import POSTPROC_FUNC_DICT, get_inst_info_dict
+from ..parallel.distributed import process_info, shard_slides
 from ..utils import mkdir, rm_n_mkdir, save_json
 from ..utils.geometry import get_bounding_box
 from ..utils.profiling import maybe_profile, trace_span
@@ -183,18 +192,19 @@ def _tile_raw_map(raw, tile_bounds, inst_slice, type_slice, dtype):
 
 
 def boundary_tile_labels(raw, tile_bounds, inst_slice, type_slice,
-                         postproc_code, device, impl: Impl = KERNELS):
+                         postproc_code, device, impl: Impl = KERNELS,
+                         mesh=None):
     """The device half of a nuclei boundary-repair (or deferred grid)
     tile: its f16 canvas window read from the disk memmap ``raw``,
-    512-padded, through the family's ``post_process`` on ``device``.
-    Returns (float64 inst_map, f32 type_map or None) cropped to the
-    clipped window."""
+    512-padded, through the family's ``post_process`` on ``device``
+    (row-sharded over ``mesh`` when one is given). Returns (float64
+    inst_map, f32 type_map or None) cropped to the clipped window."""
     raw_map, idx_dict = _tile_raw_map(raw, tile_bounds, inst_slice,
                                       type_slice, np.float16)
     h, w = raw_map.shape[:2]
     raw_map = torch.from_numpy(pad_to_512(raw_map)).to(device)
     inst_map, type_map = GPU_POSTPROC_FUNC_DICT[postproc_code].post_process(
-        raw_map, idx_dict, "Nuclei", impl=impl)
+        raw_map, idx_dict, "Nuclei", impl=impl, mesh=mesh)
     return inst_map[:h, :w], (type_map[:h, :w] if type_map is not None
                               else None)
 
@@ -275,15 +285,16 @@ def region_instance_map(region: np.ndarray, new_idx, tissue_code, code,
 
 
 def region_post_process(region: np.ndarray, new_idx, tissue_code, code,
-                        ds: float, device):
+                        ds: float, device, mesh=None):
     """Gland or lumen instances of one tissue region plane through the
     family's ``post_process`` on ``device``, 512-padded (the legacy loop's
-    ``gpu`` path, and the resident path past the uint16 limit). Returns
-    (float64 inst_map, type_map or None) cropped to the region."""
+    ``gpu`` path, row-sharded over ``mesh`` when one is given, and the
+    resident path past the uint16 limit). Returns (float64 inst_map,
+    type_map or None) cropped to the region."""
     rh, rw = region.shape[:2]
     inst_map, type_map = GPU_POSTPROC_FUNC_DICT[code].post_process(
         torch.from_numpy(pad_to_512(region)).to(device), new_idx,
-        tissue_code, ds)
+        tissue_code, ds, mesh=mesh)
     return inst_map[:rh, :rw], (type_map[:rh, :rw] if type_map is not None
                                 else None)
 
@@ -537,9 +548,10 @@ class InferManager(BaseInferManager):
 
         idx_dict, n_ch = make_channel_index_map(self.cfg.active_decoder_kwargs)
 
-        # the JAX engine's choice of loop, with gpu for its tpu
+        # the JAX engine's choice of loop, with gpu for its tpu: a mesh
+        # keeps the legacy loop (its post-processing row-shards)
         backend = getattr(self, "postproc_backend", "gpu")
-        resident = (backend in ("gpu", "tpu")
+        resident = (backend in ("gpu", "tpu") and self.mesh is None
                     and os.environ.get("CERBERUS_RESIDENT", "1") != "0")
 
         # mid-slide resume: the disk canvas + a tile-progress marker let a
@@ -691,7 +703,7 @@ class InferManager(BaseInferManager):
                         inst_map, type_map = boundary_tile_labels(
                             canvas.raw, tile_bounds, idx_dict["Nuclei-INST"],
                             idx_dict.get("Nuclei-TYPE"), postproc_code,
-                            self.device)
+                            self.device, mesh=self.mesh)
                         futures.append(host_pool.submit(
                             tile_instances, inst_map, type_map, tile_bounds,
                             pp_flags[tile_idx], set_idx, ref_boxes, ref_uids,
@@ -793,7 +805,7 @@ class InferManager(BaseInferManager):
                     else:
                         result = region_post_process(
                             region, new_idx, tissue_code, code, ds,
-                            self.device)
+                            self.device, mesh=self.mesh)
                     pred_inst_map[tissue_code], pred_type_map[tissue_code] = \
                         result
                 if "Gland" in pred_inst_map and "Lumen" in pred_inst_map:
@@ -839,6 +851,14 @@ class InferManager(BaseInferManager):
         if backend not in POSTPROC_BACKENDS:
             raise ValueError("postproc_backend=%r: use one of %s"
                              % (backend, POSTPROC_BACKENDS))
+
+        # several processes: each takes a strided share of this job's
+        # slides and a cache of its own; one process takes them all
+        pid, pcount = process_info()
+        if pcount > 1:
+            self.input_list, self.mask_list = shard_slides(
+                self.input_list, self.mask_list, pid, pcount)
+            self.cache_path = "%s_host%d" % (self.cache_path, pid)
 
         if not os.path.exists(self.cache_path):
             rm_n_mkdir(self.cache_path)

@@ -46,13 +46,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``nn.BatchNorm2d`` raises; this layer keeps JAX's guard: the output is
     the bias and the variance folded is 0. ``fold_stats`` is cleared while
     a checkpointed region recomputes (``no_stat_fold``), so a step folds
-    each batch once."""
+    each batch once.
+
+    Under ``sync_batch_stats`` (the data-parallel train step) the
+    statistics span every rank's rows (``_SyncedBatchNorm``)."""
 
     fold_stats = True
+    sync_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.sync_group is not None:
+            return self._forward_synced(x)
         n = x.numel() // x.shape[1]
         fold = self.fold_stats
         if n > 1:
@@ -75,6 +81,77 @@ class BatchNorm2d(nn.BatchNorm2d):
         return out
 
 
+    def _forward_synced(self, x: torch.Tensor) -> torch.Tensor:
+        """Training BN over the rows of every rank of ``sync_group``
+        (each holds as many rows), JAX's fold with the global count (at
+        one value per channel the output is the bias and the variance
+        folded is 0, as in ``forward``)."""
+        import torch.distributed as dist
+
+        group = self.sync_group
+        n = x.numel() // x.shape[1] * dist.get_world_size(group)
+        out, mean, var = _SyncedBatchNorm.apply(x, self.weight, self.bias,
+                                                self.eps, n, group)
+        if self.fold_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(
+                    mean.detach(), alpha=BN_MOMENTUM)
+                self.running_var.mul_(1.0 - BN_MOMENTUM).add_(
+                    var.detach() * (n / max(n - 1, 1)), alpha=BN_MOMENTUM)
+        return out
+
+
+class _SyncedBatchNorm(torch.autograd.Function):
+    """Batch norm whose statistics and backward sums span the ranks of a
+    process group: the forward all-reduces the per-channel sum, then the
+    sum of squared deviations from the global mean (in at least f32);
+    the backward is the closed form of ``torch.batch_norm``'s with the
+    sums of ``grad`` and ``grad * x_hat`` all-reduced. Its input gradient
+    is the global loss's (the all-reduces of the loss sums sum the ranks'
+    upstream gradients), and its weight and bias gradients are this
+    rank's share, summed with the other gradients after the backward.
+    Returns (output, global mean, biased global variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, n, group):
+        import torch.distributed as dist
+
+        dims = (0, 2, 3)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.sum(dims)
+        dist.all_reduce(mean, group=group)
+        mean /= n
+        centered = xf - mean[None, :, None, None]
+        var = (centered * centered).sum(dims)
+        dist.all_reduce(var, group=group)
+        var /= n
+        invstd = 1.0 / torch.sqrt(var + eps)
+        x_hat = centered * invstd[None, :, None, None]
+        out = x_hat * weight[None, :, None, None] + bias[None, :, None, None]
+        ctx.save_for_backward(x_hat, invstd, weight)
+        ctx.n, ctx.group, ctx.dtype = n, group, x.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return out.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, grad, _grad_mean, _grad_var):
+        import torch.distributed as dist
+
+        x_hat, invstd, weight = ctx.saved_tensors
+        dims = (0, 2, 3)
+        grad = grad.to(x_hat.dtype)
+        local = torch.stack([grad.sum(dims), (grad * x_hat).sum(dims)])
+        grad_bias, grad_weight = local[0].clone(), local[1].clone()
+        dist.all_reduce(local, group=ctx.group)
+        mean_dy = local[0] / ctx.n
+        mean_dy_xhat = local[1] / ctx.n
+        grad_x = (grad - mean_dy[None, :, None, None]
+                  - x_hat * mean_dy_xhat[None, :, None, None]) \
+            * (invstd * weight)[None, :, None, None]
+        return (grad_x.to(ctx.dtype), grad_weight.to(weight.dtype),
+                grad_bias.to(weight.dtype), None, None, None)
+
+
 def batch_norm(channels: int) -> BatchNorm2d:
     return BatchNorm2d(channels, eps=BN_EPS)
 
@@ -93,6 +170,45 @@ def no_stat_fold(module: nn.Module):
     finally:
         for m, value in zip(layers, saved):
             m.fold_stats = value
+
+
+def allsum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the ranks of the process ``group`` (None: ``t``)
+    by ``torch.distributed.nn.functional.all_reduce``, whose backward
+    all-reduces the gradients: the data-parallel step backpropagates its
+    loss divided by the world size (the loss sums' counterpart of
+    ``_SyncedBatchNorm``)."""
+    if group is None:
+        return t
+    import warnings
+
+    from torch.distributed.nn.functional import all_reduce
+
+    with warnings.catch_warnings():
+        # deprecated in favour of _functional_collectives, which has no
+        # autograd
+        warnings.simplefilter("ignore", FutureWarning)
+        return all_reduce(t, group=group)
+
+
+@contextlib.contextmanager
+def sync_batch_stats(module: nn.Module, group):
+    """Within the region, every training-mode ``BatchNorm2d`` of
+    ``module`` takes its statistics over the ranks of the process
+    ``group`` (the data-parallel step holds it over the forward and the
+    backward, so a checkpointed region's recompute syncs too). A no-op
+    for ``group`` None."""
+    if group is None:
+        yield
+        return
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in layers:
+        m.sync_group = group
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.sync_group = None
 
 
 def dropout(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:

@@ -59,7 +59,6 @@ from .layers import (
     center_crop,
     conv2d,
     dropout,
-    dropout_mask,
     no_stat_fold,
     upsample2x,
 )
@@ -313,15 +312,14 @@ class NetDesc(nn.Module):
         return self
 
     def forward_train(self, x: torch.Tensor, remat=False,
-                      keep: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None
+                      keep: Optional[torch.Tensor] = None
                       ) -> Dict[str, torch.Tensor]:
         """The training forward: NCHW float in [0, 1] -> {head: NCHW
         logits}, full towers, BN per its mode (``train()``).
 
         ``keep``: the Patch-Class dropout keep-mask, (N, C, 1, 1) bool for
-        the pooled features after ``bn1``; else one is drawn from
-        ``generator``; with neither, no dropout (JAX ``dropout_rng=None``).
+        the pooled features after ``bn1``; without it, no dropout (JAX
+        ``dropout_rng=None``). ``TrainStep`` draws the mask.
         ``remat`` (``False``/``True``/``"backbone"``/``"towers"``) runs the
         encoder and/or each tower with its output heads as one
         ``torch.utils.checkpoint`` region whose recompute folds no BN
@@ -340,9 +338,6 @@ class NetDesc(nn.Module):
                 decoder_name, *feats))
         if "Patch-Class" in self.decoder_head:
             head = self.decoder_head["Patch-Class"]
-            if keep is None and generator is not None:
-                keep = dropout_mask((bottom.shape[0], bottom.shape[1], 1, 1),
-                                    generator, bottom.device)
             out["Patch-Class"] = patch_class_head(head, bottom, keep)
         return out
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -63,15 +64,36 @@ def library_path(name: str) -> str:
                                                     digest.hexdigest()[:16]))
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on ``build/.lock`` across processes: processes
+    that build at first use (the ranks of a multi-process run) build each
+    library once, one after the other."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # closing the file (also when the build raises) releases the lock
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as handle:
+        fcntl.flock(handle, fcntl.LOCK_EX)
+        yield
+
+
 def build_all(names=KERNELS) -> float:
-    """Compile every missing library, all ``nvcc`` processes in parallel.
-    Returns the wall seconds spent; raises with the compiler's output if
-    any build fails."""
+    """Compile every missing library, all ``nvcc`` processes in parallel,
+    each into a temporary file renamed into place when it is whole, under
+    the build lock (a library another process built meanwhile is not
+    built again). Returns the wall seconds spent; raises with the
+    compiler's output if any build fails."""
     t0 = time.perf_counter()
+    if all(os.path.isfile(library_path(n)) for n in names):
+        return 0.0
+    with _build_lock():
+        _build_missing(names)
+    return time.perf_counter() - t0
+
+
+def _build_missing(names) -> None:
     todo = [n for n in names if not os.path.isfile(library_path(n))]
     if not todo:
-        return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
+        return
     nvcc = find_nvcc()
     procs = []
     for name in todo:
@@ -90,7 +112,6 @@ def build_all(names=KERNELS) -> float:
             os.replace(tmp, final)
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
-    return time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -13,6 +13,12 @@ and the type map: the tile engine's and the WSI fallback paths' contract).
 ``compact_present_ids`` is the WSI engine's on-device counterpart of that
 host compaction (``cerberus_tpu/infer/resident_wsi.py:76-105``), and
 ``pad_to_512`` its shape rule (``cerberus_tpu/ops/tpu_postproc.py:42-57``).
+
+With ``mesh=`` (a single-controller ``parallel.mesh.Mesh``) both entries
+run the row-sharded compositions of ``ops/sharded_cc.py``, as
+``cerberus_tpu/ops/tpu_postproc.py:186-236`` does: the CC (and the
+nuclei watershed) cores split into row strips over the mesh, the rest on
+the whole plane on ``mesh.devices[0]``.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from . import device_postproc as D
+from . import sharded_cc as S
 from .device_postproc import KERNELS, Impl
 
 
@@ -125,20 +132,24 @@ class GPUPostProcInstErodedMap:
 
     @classmethod
     def labels(cls, inst: torch.Tensor, tissue_mode, ds_factor=1.0,
-               impl: Impl = KERNELS) -> torch.Tensor:
+               impl: Impl = KERNELS, mesh=None) -> torch.Tensor:
         """(H, W, n) INST channels on the device -> int32 labels. The
         sizes are not scaled by ``ds_factor`` (as in the JAX family)."""
         min_size, ksize = cls._SPEC[tissue_mode.upper()]
         fg = inst[..., 0].float().contiguous()
+        if mesh is not None:
+            return S.sharded_eroded_instances(fg, 0.5, min_size, ksize, mesh,
+                                              impl)
         return _eroded_map_instances(fg, 0.5, min_size, ksize, impl)
 
     @classmethod
     def post_process(cls, raw_map: torch.Tensor, idx_dict, tissue_mode,
-                     ds_factor=1.0, impl: Impl = KERNELS):
+                     ds_factor=1.0, impl: Impl = KERNELS, mesh=None):
         """``raw_map``: (H, W, C) canvas tensor on the device. Returns
         (float64 inst_map, f32 type_map or None) as numpy."""
         s, e = idx_dict["%s-INST" % tissue_mode]
-        lab = cls.labels(raw_map[..., s:e], tissue_mode, ds_factor, impl)
+        lab = cls.labels(raw_map[..., s:e], tissue_mode, ds_factor, impl,
+                         mesh)
         return _compact_labels(lab), _type_map(raw_map, idx_dict, tissue_mode)
 
 
@@ -150,7 +161,7 @@ class GPUPostProcInstErodedContourMap:
 
     @classmethod
     def labels(cls, inst: torch.Tensor, tissue_mode, ds_factor=1.0,
-               impl: Impl = KERNELS) -> torch.Tensor:
+               impl: Impl = KERNELS, mesh=None) -> torch.Tensor:
         """(H, W, 2) INST channels (inner, contour) on the device -> int32
         labels: the nuclei watershed, or the gland/lumen family with its
         sizes scaled by ``ds_factor``."""
@@ -158,17 +169,24 @@ class GPUPostProcInstErodedContourMap:
         cnt = inst[..., 1].float().contiguous()
         mode = tissue_mode.upper()
         if mode == "NUCLEI":
+            if mesh is not None:
+                return S.sharded_nuclei_watershed(inner, cnt, mesh, impl)
             return _nuclei_watershed(inner, cnt, impl)
         thresh, base_min, base_k = cls._SPEC[mode]
-        return _inner_contour_instances(
-            inner, cnt, thresh, int(base_min * ds_factor ** 2),
-            int((base_k - 1) * ds_factor), impl)
+        min_size = int(base_min * ds_factor ** 2)
+        ksize = int((base_k - 1) * ds_factor)
+        if mesh is not None:
+            return S.sharded_contour_instances(inner, cnt, thresh, min_size,
+                                               ksize, mesh, impl)
+        return _inner_contour_instances(inner, cnt, thresh, min_size, ksize,
+                                        impl)
 
     @classmethod
     def post_process(cls, raw_map: torch.Tensor, idx_dict, tissue_mode,
-                     ds_factor=1.0, impl: Impl = KERNELS):
+                     ds_factor=1.0, impl: Impl = KERNELS, mesh=None):
         s, e = idx_dict["%s-INST" % tissue_mode]
-        lab = cls.labels(raw_map[..., s:e], tissue_mode, ds_factor, impl)
+        lab = cls.labels(raw_map[..., s:e], tissue_mode, ds_factor, impl,
+                         mesh)
         return _compact_labels(lab), _type_map(raw_map, idx_dict, tissue_mode)
 
 

@@ -140,8 +140,9 @@ def _flood(work: torch.Tensor, allowed: torch.Tensor, big: int):
 
 def propagate_labels_plain(lab: torch.Tensor,
                            allowed: torch.Tensor) -> torch.Tensor:
-    h, w = lab.shape
-    big = h * w + 2
+    # above every int32 label: a row strip of a plane holds the plane's
+    # global ids, which exceed the strip's own pixel count
+    big = torch.iinfo(torch.int32).max
     lab = lab.int()
     work = torch.where(lab == 0, torch.full_like(lab, big), lab)
     work = _flood(work, allowed.bool(), big)

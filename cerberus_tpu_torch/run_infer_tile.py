@@ -11,7 +11,7 @@ Usage:
 Options:
   -h --help                   Show this string.
   --version                   Show version.
-  --gpu=<id>                  GPU to run on (cuda:<id>). [default: 0]
+  --gpu=<id>                  GPU to run on (cuda:<id>), or a comma list of GPUs: each batch is split over them (a mesh). [default: 0]
   --model=<path>              Path to the model directory (weights.tar + settings.yml).
   --nr_inference_workers=<n>  Number of workers during inference. [default: 0]
   --nr_post_proc_workers=<n>  Number of workers during post-processing. [default: 0]
@@ -52,8 +52,12 @@ def main(argv=None, device=None) -> None:
     args = docopt(__doc__, argv=argv,
                   version="CoBi Gland Inference (cerberus-tpu-torch)")
     if device is None:
-        device = default_device() or "cuda:%d" % int(
-            str(args["--gpu"]).split(",")[0])
+        device = default_device()
+    mesh = None
+    if device is None:
+        from .parallel.mesh import gpu_flag_devices
+
+        device, mesh = gpu_flag_devices(args["--gpu"])
 
     output_dir = args["--output_dir"]
     if not os.path.exists(output_dir):
@@ -83,6 +87,7 @@ def main(argv=None, device=None) -> None:
         decoder_dict=paramset.req_target_code,
         model_args=paramset.model_kwargs,
         device=device,
+        mesh=mesh,
     )
     infer.process_file_list(run_args)
 

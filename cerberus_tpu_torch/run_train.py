@@ -11,7 +11,7 @@ Usage:
 
 Options:
   -h --help            Show this string.
-  --gpu=<id>           GPU to train on (cuda:<id>). One GPU only: a list of ids (multi-GPU training) is not ported yet. [default: 0]
+  --gpu=<id>           GPU to train on (cuda:<id>). One GPU only: data-parallel training is build_trainer(mesh=...) in one process per card. [default: 0]
   --settings=<path>    Path to a settings.yml/paramset.yml (loader/optimizer/loss/dataset/model kwargs).
   --log_dir=<path>     Checkpoint + stats output directory. [default: logs/]
   --nr_epochs=<n>      Number of epochs. [default: 140]
@@ -100,8 +100,11 @@ def main(argv=None, device=None):
     gpus = str(args["--gpu"]).split(",")
     if len(gpus) > 1:
         raise NotImplementedError(
-            "--gpu=%s: multi-GPU training is not ported yet (ROADMAP queue "
-            "1 item 7, multi-GPU)" % args["--gpu"])
+            "--gpu=%s: run_train trains on one card, as the JAX CLI does. "
+            "Data-parallel training (ROADMAP queue 1 item 7) runs one "
+            "process per card: call parallel.distributed.initialize, then "
+            "train.opt.build_trainer(mesh=parallel.mesh.make_mesh("
+            "group='world'))" % args["--gpu"])
     if device is None:
         device = default_device() or "cuda:%d" % int(gpus[0])
     remat_arg = (args["--remat"] or "off").lower()

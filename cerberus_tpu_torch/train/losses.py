@@ -12,12 +12,20 @@ Counterpart of ``cerberus_tpu/train/losses.py`` (reference
 The JAX functions take channel-last arrays; these take the PyTorch layout
 (N, C, H, W) and compute the same values. The multi-task composition
 lives in ``train/steps.py``.
+
+``group``: in the data-parallel step each rank holds some rows of the
+global batch, and the batch-joint sums (dice's intersection and totals,
+the MSGE focus) go through a differentiable ``all_reduce`` over the
+process group (``models/layers.allsum``), so every rank computes the global batch's
+value, as the JAX package's step computes it on its sharded batch.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..models.layers import allsum
 
 
 def xentropy_loss(true: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
@@ -28,16 +36,18 @@ def xentropy_loss(true: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
 
 
 def dice_loss(true_onehot: torch.Tensor, pred_prob: torch.Tensor,
-              mask=None, smooth: float = 1.0e-3) -> torch.Tensor:
+              mask=None, smooth: float = 1.0e-3, group=None) -> torch.Tensor:
     """Batch-joint dice over classes. true_onehot/pred_prob: (N, C, H, W);
-    mask broadcastable to them. Sums (1 - dice) over classes."""
+    mask broadcastable to them. Sums (1 - dice) over classes; with
+    ``group``, over the rows of every rank."""
     if mask is not None:
         true_onehot = true_onehot * mask
         pred_prob = pred_prob * mask
     dims = (0, 2, 3)
-    inse = torch.sum(pred_prob * true_onehot, dim=dims)
-    left = torch.sum(pred_prob, dim=dims)
-    right = torch.sum(true_onehot, dim=dims)
+    sums = allsum(torch.stack([torch.sum(pred_prob * true_onehot, dim=dims),
+                               torch.sum(pred_prob, dim=dims),
+                               torch.sum(true_onehot, dim=dims)]), group)
+    inse, left, right = sums[0], sums[1], sums[2]
     loss = 1.0 - (2.0 * inse + smooth) / (left + right + smooth)
     return torch.sum(loss)
 
@@ -75,14 +85,17 @@ def _grad_hv(hv: torch.Tensor, kernel_h, kernel_v) -> torch.Tensor:
 
 
 def msge_loss(true: torch.Tensor, pred: torch.Tensor,
-              focus: torch.Tensor) -> torch.Tensor:
+              focus: torch.Tensor, group=None) -> torch.Tensor:
     """HoVerNet-style masked MSE of horizontal/vertical map gradients
-    (loss_utils.py:98-163). true/pred: (N, 2, H, W); focus: (N, H, W)."""
+    (loss_utils.py:98-163). true/pred: (N, 2, H, W); focus: (N, H, W);
+    with ``group``, over the rows of every rank."""
     kh, kv = hv_sobel_kernels(5)
     focus = torch.stack([focus, focus], dim=1).float()
     diff = _grad_hv(pred, kh, kv) - _grad_hv(true, kh, kv)
     loss = focus * diff * diff
-    return torch.sum(loss) / (torch.sum(focus) + 1.0e-8)
+    sums = allsum(torch.stack([torch.sum(loss),
+                               torch.sum(focus).to(loss.dtype)]), group)
+    return sums[0] / (sums[1] + 1.0e-8)
 
 
 def simclr_loss(features: torch.Tensor, temperature: float = 0.07,

@@ -11,9 +11,13 @@ carries the previous phase's weights; one log directory per phase).
 
 The model is the port's ``NetDesc`` on one device (``cuda`` unless the
 caller or ``CERBERUS_DEFAULT_DEVICE`` says otherwise); every encoder
-trains, the DSF-CNN ones included. Not ported: the mesh (data-parallel)
-path, ROADMAP queue 1 item 7; the width-paired lowerings (``paired``),
-item 9. Each raises ``NotImplementedError`` naming its item.
+trains, the DSF-CNN ones included. ``mesh`` (``cerberus_tpu/train/opt.py:
+112-147``): a process mesh (one process per card, every process calling
+``build_trainer`` with loaders that yield the same global batches) trains
+data-parallel through ``parallel/mesh.make_sharded_train_step``; only its
+first rank writes logs and checkpoints. Not ported: the width-paired
+lowerings (``paired``), ROADMAP queue 1 item 9, which raise
+``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
@@ -73,12 +77,14 @@ def get_config(model_kwargs: Dict, loss_kwargs: Dict,
 
 def check_supported(cfg: ModelConfig, mesh=None, paired: bool = False
                     ) -> None:
-    """Raise ``NotImplementedError`` for what the port does not train yet,
-    naming its ROADMAP queue 1 item."""
+    """Raise ``NotImplementedError`` for what the port does not train,
+    naming its ROADMAP queue 1 item: a single-controller mesh of more
+    than one device (item 7 trains data-parallel on a process mesh
+    only) and the paired lowerings (item 9)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "multi-device training is not ported yet (ROADMAP queue 1 "
-            "item 7, multi-GPU)")
+        from ..parallel.mesh import check_trainable
+
+        check_trainable(mesh)
     if paired:
         raise NotImplementedError(
             "--paired is not ported (ROADMAP queue 1 item 9, the TPU-only "
@@ -104,6 +110,10 @@ def build_trainer(config: Dict, train_loaders: Dict, valid_loaders: Dict,
     net_cfg = phase["run_info"]["net"]
     cfg = ModelConfig.from_kwargs(net_cfg["model_kwargs"])
     check_supported(cfg, mesh, paired)
+    if mesh is not None:
+        device = mesh.local_device
+        if mesh.rank != 0:
+            log_dir = None  # one writer of logs and checkpoints
     device = resolve_device(device)
     loss_kwargs = net_cfg["extra_info"]["loss"]
     per_n = config.get("per_n_steps", PER_N_STEPS)
@@ -118,9 +128,16 @@ def build_trainer(config: Dict, train_loaders: Dict, valid_loaders: Dict,
     opt_kwargs = dict(net_cfg["optimizer_kwargs"],
                       lr_decay_steps=int(net_cfg.get("lr_decay_steps",
                                                      75000)))
-    train_step = make_train_step(cfg, loss_kwargs, opt_kwargs,
-                                 compute_dtype=dtype, remat=remat,
-                                 grad_accum=grad_accum, model=model)
+    if mesh is not None:
+        from ..parallel.mesh import make_sharded_train_step
+
+        train_step = make_sharded_train_step(
+            cfg, mesh, loss_kwargs, opt_kwargs, compute_dtype=dtype,
+            grad_accum=grad_accum, remat=remat, model=model)
+    else:
+        train_step = make_train_step(cfg, loss_kwargs, opt_kwargs,
+                                     compute_dtype=dtype, remat=remat,
+                                     grad_accum=grad_accum, model=model)
     resume_from = net_cfg.get("resume_from")
     if resume_from:
         train_step.load_jax_train_state(*load_train_state(resume_from))

@@ -28,6 +28,15 @@ The step keeps the JAX semantics where torch's defaults differ:
   * bf16 is ``torch.autocast`` over the forward: parameters, Adam moments
     and BN statistics stay f32, and the logits are cast to f32 before the
     loss (JAX casts at ``steps.py:187``).
+
+With a process ``group`` (``parallel/mesh.make_sharded_train_step``) the
+step is data-parallel and still the single-device step on the global
+batch, as the JAX package's sharded step is: each rank takes its rows of
+every microbatch, BN statistics (``layers.sync_batch_stats``), the dice
+sums and the per-head flag sums are all-reduced in the forward, each rank
+backpropagates its copy of the global loss divided by the world size (the
+all-reduces' backward sums the ranks' gradients), and the gradients are
+all-reduced once, as one flat buffer, before the identical update.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..models import convert
+from ..models.layers import allsum, dropout_mask, sync_batch_stats
 from ..models.net_desc import (
     REMAT_MODES,
     NetDesc,
@@ -97,10 +107,12 @@ def loss_weight_tables(loss_kwargs: Optional[Mapping], cfg: ModelConfig):
 
 
 def head_losses(pred: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
-                cfg: ModelConfig, loss_tables) -> Tuple[torch.Tensor, Dict]:
+                cfg: ModelConfig, loss_tables, group=None
+                ) -> Tuple[torch.Tensor, Dict]:
     """(total, {"<head>_loss", "overall_loss"}) from NCHW logits and a
     device batch (the loss half of JAX ``multitask_loss``). The loss runs
-    in f32, or in f64 for f64 logits."""
+    in f32, or in f64 for f64 logits. ``group``: the batch is this rank's
+    rows, and every batch-joint sum spans the ranks (``layers.allsum``)."""
     n_ch = head_output_channels(cfg)
     dtype = torch.promote_types(next(iter(pred.values())).dtype,
                                 torch.float32)
@@ -117,7 +129,7 @@ def head_losses(pred: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
         if head == "Patch-Class":
             ce = xentropy_loss(true.reshape(true.shape[0]).long(),
                                logits.reshape(logits.shape[0], -1))
-            term = torch.sum(ce * flag) / (torch.sum(flag) + 1.0e-8)
+            term = _flagged_mean(ce, flag, group)
             head_loss = loss_dict.get("ce", 0.0) * term
         else:
             label = true[..., 0].long()  # (N, h, w)
@@ -135,17 +147,26 @@ def head_losses(pred: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
                         0, 3, 1, 2).to(dtype)
                     prob = torch.softmax(logits, dim=1)
                     mask = (label > 0).to(dtype)[:, None]
-                    term = dice_loss(onehot[:, 1:], prob[:, 1:], mask=mask)
+                    term = dice_loss(onehot[:, 1:], prob[:, 1:], mask=mask,
+                                     group=group)
                 else:
                     pix = xentropy_loss(label, logits) * wmap
                     per_sample = torch.mean(pix, dim=(1, 2))
-                    term = torch.sum(per_sample * flag) / (
-                        torch.sum(flag) + 1.0e-8)
+                    term = _flagged_mean(per_sample, flag, group)
                 head_loss = head_loss + loss_weight * term
         metrics["%s_loss" % head] = head_loss * head_weight
         total = total + head_loss * head_weight
     metrics["overall_loss"] = total
     return total, metrics
+
+
+def _flagged_mean(per_sample: torch.Tensor, flag: torch.Tensor, group=None
+                  ) -> torch.Tensor:
+    """sum(per_sample * flag) / (sum(flag) + 1e-8) over the batch (over
+    every rank's rows with ``group``)."""
+    sums = allsum(torch.stack([torch.sum(per_sample * flag),
+                               torch.sum(flag)]), group)
+    return sums[0] / (sums[1] + 1.0e-8)
 
 
 def images_to_input(img: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -159,16 +180,17 @@ def autocast(device: torch.device, compute_dtype):
 
 
 def multitask_loss(model: NetDesc, batch: Dict[str, torch.Tensor],
-                   cfg: ModelConfig, loss_tables, keep=None, generator=None,
-                   compute_dtype=torch.float32, remat=False):
+                   cfg: ModelConfig, loss_tables, keep=None,
+                   compute_dtype=torch.float32, remat=False, group=None):
     """The training forward (``NetDesc.forward_train``, every active head)
     and ``head_losses`` on a device batch -> (total, metrics). The input
-    takes the parameters' dtype (f32; f64 for a model in f64)."""
+    takes the parameters' dtype (f32; f64 for a model in f64). ``group``:
+    the loss sums span its ranks (the forward's BN syncs under
+    ``layers.sync_batch_stats``, which the caller holds)."""
     x = images_to_input(batch["img"], next(model.parameters()).dtype)
     with autocast(x.device, compute_dtype):
-        pred = model.forward_train(x, remat=remat, keep=keep,
-                                   generator=generator)
-    return head_losses(pred, batch, cfg, loss_tables)
+        pred = model.forward_train(x, remat=remat, keep=keep)
+    return head_losses(pred, batch, cfg, loss_tables, group)
 
 
 def batch_to_device(batch: Mapping, device: torch.device
@@ -196,12 +218,19 @@ class TrainStep:
     (N, C, 1, 1) bool, sliced per microbatch; else the masks are drawn from
     ``generator``; with neither there is no dropout. With
     ``CERBERUS_DEBUG`` set, every loss scalar is checked for NaN/Inf
-    (``FloatingPointError`` naming it)."""
+    (``FloatingPointError`` naming it).
+
+    ``group`` (a ``torch.distributed`` process group; the model on this
+    rank's device): the data-parallel step. Each call takes the GLOBAL
+    batch (and ``keep``) and must be made on every rank with the same
+    batch; a batch that does not divide by ``grad_accum`` x the world
+    size raises ``ValueError``. The weights are broadcast from the
+    group's first rank here, so every rank starts from the same state."""
 
     def __init__(self, model: NetDesc, cfg: ModelConfig, loss_kwargs=None,
                  optimizer_kwargs=None, compute_dtype=torch.float32,
                  remat=False, grad_accum: int = 1,
-                 return_grads: bool = False):
+                 return_grads: bool = False, group=None):
         if grad_accum < 1:
             raise ValueError("grad_accum must be >= 1, got %d" % grad_accum)
         if remat not in REMAT_MODES:
@@ -227,6 +256,17 @@ class TrainStep:
             float((optimizer_kwargs or {}).get("weight_decay", 0.0)))
         self.debug = debug_mode_requested()
         self.count = 0
+        self.group = group
+        self.rank, self.world = 0, 1
+        if group is not None:
+            import torch.distributed as dist
+
+            self.rank = dist.get_rank(group)
+            self.world = dist.get_world_size(group)
+            src = dist.get_process_group_ranks(group)[0]
+            with torch.no_grad():
+                for tensor in list(model.parameters()) + list(model.buffers()):
+                    dist.broadcast(tensor.data, src=src, group=group)
 
     @property
     def param_names(self) -> List[str]:
@@ -242,29 +282,50 @@ class TrainStep:
 
     def __call__(self, batch: Mapping, keep: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None):
-        model, k = self.model, self.grad_accum
+        model, k, world = self.model, self.grad_accum, self.world
         model.train()  # also puts subtype-frozen BN layers in eval mode
-        batch = batch_to_device(batch, self.device)
-        n = batch["img"].shape[0]
-        if n % k:
-            raise ValueError("batch size %d not divisible by grad_accum=%d"
-                             % (n, k))
+        n = len(batch["img"])
+        if n % (k * world):
+            raise ValueError("batch size %d not divisible by grad_accum x "
+                             "ranks (%d x %d)" % (n, k, world))
         self.optimizer.zero_grad(set_to_none=False)
         m = n // k
+        rows = m // world  # this rank's rows of each microbatch
+        # one copy of this rank's rows of every microbatch (the whole batch
+        # on one device), sliced per microbatch on the device
+        if world > 1:
+            index = (np.arange(k)[:, None] * m + self.rank * rows
+                     + np.arange(rows)[None, :]).reshape(-1)
+            batch = {key: np.asarray(v)[index] for key, v in batch.items()}
+            if keep is not None:
+                keep = keep[torch.as_tensor(index, device=keep.device)]
+        batch = batch_to_device(batch, self.device)
         sums: Dict[str, torch.Tensor] = {}
         for i in range(k):
-            micro = {key: v[i * m:(i + 1) * m] for key, v in batch.items()}
-            total, metrics = multitask_loss(
-                model, micro, self.cfg, self.loss_tables,
-                keep=None if keep is None else keep[i * m:(i + 1) * m],
-                generator=generator, compute_dtype=self.compute_dtype,
-                remat=self.remat)
-            total.backward()
+            lo = i * rows
+            micro = {key: v[lo:lo + rows] for key, v in batch.items()}
+            micro_keep = (None if keep is None
+                          else keep[lo:lo + rows].to(self.device))
+            if micro_keep is None and generator is not None \
+                    and "Patch-Class" in model.decoder_head:
+                # the whole microbatch's mask (every rank's generator is
+                # alike), as the forward would draw it on one device
+                micro_keep = dropout_mask(
+                    (m, self._pclass_channels(), 1, 1), generator,
+                    self.device)[self.rank * rows:(self.rank + 1) * rows]
+            with sync_batch_stats(model, self.group):
+                total, metrics = multitask_loss(
+                    model, micro, self.cfg, self.loss_tables,
+                    keep=micro_keep, compute_dtype=self.compute_dtype,
+                    remat=self.remat, group=self.group)
+                (total / world).backward()
             for key, value in metrics.items():
                 value = value.detach()
                 if self.debug:
                     check_finite(key, value)
                 sums[key] = sums[key] + value if key in sums else value
+        if world > 1:
+            self._all_reduce_grads()
         if k > 1:
             for _, param in self.named_params:
                 param.grad.div_(k)
@@ -277,6 +338,21 @@ class TrainStep:
             return metrics, {name: p.grad.detach().clone()
                              for name, p in self.named_params}
         return metrics
+
+    def _pclass_channels(self) -> int:
+        return self.model.decoder_head["Patch-Class"].bn1.num_features
+
+    def _all_reduce_grads(self) -> None:
+        """Sum the ranks' gradients: one all-reduce of one flat buffer."""
+        import torch.distributed as dist
+
+        grads = [p.grad for _, p in self.named_params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.group)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
 
     # -- train state in the JAX package's layout --------------------------
     def jax_train_state(self):

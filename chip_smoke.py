@@ -172,6 +172,30 @@ Phases, each printing JSON lines:
      64^2, batch 2, the card against the CPU in float64 within 1e-8 /
      1e-6; ``dsf_seconds``.
 
+  12. multi-GPU (after ``wsi_cli_cpu``, before training; one card, so
+     meshes are virtual, ``[cuda:0] * k``, and both ranks of the
+     two-process phases share it): ``mesh_infer``: the main path's model
+     through ``make_sharded_infer_step`` on a 4-entry mesh at batch 10
+     (padded to 12), byte-equal to the single-device step run on each
+     3-window chunk, ms per batch beside the single-device step's;
+     ``sharded_cc``: ``connected_components_sharded`` over 2, 4 and 8
+     entries on the 1000^2 and 2560^2 foreground planes and the 1000^2
+     spiral, byte-equal to one ``cc_label``, and ``watershed_sharded``
+     (4 entries) on the 1000^2 and 2560^2 nuclei planes, byte-equal to
+     the same function on CPU strips (the plain passes), with its rounds
+     per level and the pixels where it differs from the single-device
+     watershed; ``mesh_wsi``: the WSI CLI with ``--gpu=0,0,0,0
+     --batch_size=4`` on the slide, gland and lumen payloads equal to
+     the single-device legacy loop's at batch 1 (``wsi_cli_legacy``),
+     nuclei counts and differing pixels printed; ``dp_train``: two gloo
+     ranks, the data-parallel step in float64 (resnet18, 96^2, batch 4)
+     against the single-device card step within ``train_parity``'s
+     float64 tolerances, and the ResNet-34 448^2 batch-12 bf16 step's ms
+     (printed); ``distributed_tiles``: two gloo ranks split the ten
+     ``tile_cli_cache`` images (``shard_slides``) through the tile CLI's
+     manager at batch 1, the union's ``.mat`` files equal to one
+     process's; ``multi_gpu_seconds``.
+
 The second-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without CUDA, or without the package beside this script, it exits 1 and
@@ -179,11 +203,14 @@ prints no result. It imports nothing of JAX or cerberus_tpu; cv2 and
 PyYAML are imported only by the CLIs' host side (phases 6, 8, 9 and 10)
 and the readers phase. The ``kernels`` line carries each kernel's
 launches on every driven path, the DSF ones (``dsf_main_path_launches``,
-``dsf_tile_cli_launches``, ``dsf_wsi_cli_launches``) included.
+``dsf_tile_cli_launches``, ``dsf_wsi_cli_launches``) and the multi-GPU
+ones (``mesh_wsi_launches``, ``sharded_cc_launches``; ``watershed`` is 0
+there: the sharded paths flood with ``propagate_labels``) included.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -1239,9 +1266,9 @@ def phase_wsi(torch, manager):
 
 
 def run_wsi_cli(torch, work, input_dir, extra_argv=(), env=None,
-                write=None):
+                write=None, gpu="0"):
     """``python -m cerberus_tpu_torch.run_infer_wsi`` as a user runs it (its
-    ``main``, in this process) with ``--gpu=0`` on the slides in
+    ``main``, in this process) with ``--gpu=<gpu>`` on the slides in
     ``input_dir`` and the synthetic model, host side included (cv2
     contours and resizes, the ``.dat`` pickle, the tissue map), with
     ``extra_argv`` added and ``env`` set for the run. Launch counts are
@@ -1261,7 +1288,7 @@ def run_wsi_cli(torch, work, input_dir, extra_argv=(), env=None,
         write_model(torch, os.path.join(work, "model"), True)
     else:
         write(os.path.join(work, "model"))
-    argv = ["--gpu=0", "--model=%s/model" % work,
+    argv = ["--gpu=%s" % gpu, "--model=%s/model" % work,
             "--input_dir=%s" % input_dir, "--output_dir=%s/out" % work,
             "--cache_path=%s/cache/" % work, "--logging_dir=%s/log" % work,
             "--tile_shape=%d" % WSI_TILE, *extra_argv]
@@ -1598,7 +1625,8 @@ def phase_wsi_cli_legacy(torch, resident_run):
     every window alone: both at ``--batch_size=1``, the payloads must be
     equal by content (2160 is a multiple of 144, so both loops write every
     canvas pixel from the same patch). At batch 30 the legacy run is set
-    beside ``wsi_cli``'s (counts, centroid matches; printed)."""
+    beside ``wsi_cli``'s (counts, centroid matches; printed). Returns the
+    batch-30 run and the batch-1 legacy run."""
     from cerberus_tpu_torch.ops import cuda_build
 
     work = os.path.join(cuda_build.BUILD_DIR, "smoke_wsi_cli_legacy")
@@ -1639,7 +1667,7 @@ def phase_wsi_cli_legacy(torch, resident_run):
     if not equal1:
         raise AssertionError("wsi_cli_legacy: at batch 1 the legacy and the "
                              "resident loop give different payloads")
-    return run
+    return run, one["legacy"]
 
 
 def centroid_match(a: dict, b: dict, tol: float = 3.0) -> float:
@@ -2424,6 +2452,22 @@ def train_helpers():
     return _torch_train_helpers
 
 
+def run_ranks(target, world, args, timeout_s):
+    """``tests/_torch_ranks.run_ranks``: ``target(rank, world, *args)`` in
+    ``world`` gloo processes (kept for the next call), results in rank
+    order; a failed or late rank fails the call."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_ranks
+
+    return _torch_ranks.run_ranks(target, world, args, timeout_s)
+
+
+def close_ranks():
+    """End the processes ``run_ranks`` started."""
+    if "_torch_ranks" in sys.modules:
+        sys.modules["_torch_ranks"].close_pools()
+
+
 def profile_step(torch, fn):
     """One ``fn()`` under ``torch.profiler``: (wall ms, device ms, top five
     device operations)."""
@@ -3013,6 +3057,502 @@ def phase_dsf(torch, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# multi-GPU (ROADMAP queue 1 item 7): one card, so meshes are virtual
+# ([cuda:0] * k) and the two-process phases put both ranks on cuda:0 (gloo)
+# ---------------------------------------------------------------------------
+
+MESH_SIZES = (2, 4, 8)
+MESH_INFER = (4, 10)  # mesh_infer: virtual mesh entries, batch (padded to 12)
+MESH_WSI_ENTRIES = 4  # mesh_wsi: --gpu=0,0,0,0 --batch_size=4
+MESH_WSI_TILE_ROWS = 2560  # a WSI_TILE nuclei tile after pad_to_512
+RANKS = 2
+DP_TIMED = (1, 3)  # dp_train bf16: warm-up steps, timed steps
+
+
+def counted(torch, launches, fn):
+    """``fn()``, adding the kernel launches it makes to ``launches``."""
+    from cerberus_tpu_torch.ops import cuda_build
+
+    before = dict(cuda_build.launch_counts)
+    out = fn()
+    torch.cuda.synchronize()
+    for name, count in cuda_build.launch_counts.items():
+        launches[name] = launches.get(name, 0) + count - before[name]
+    return out
+
+
+def phase_mesh_infer(torch, manager):
+    """The main path's model (ResNet-34, 448->144, bf16) through
+    ``make_sharded_infer_step`` on a 4-entry virtual mesh of the card:
+    a batch of 10 windows, zero-padded to 12, one chunk of 3 a replica.
+    Byte-equal to the single-device step run on each 3-window chunk (the
+    card's forward is exact for a given batch, not across batch sizes);
+    ms per batch beside the single-device step's at batch 10. The tile
+    manager with that mesh (``InferManager(mesh=...)``) gives the same
+    canvas as the sharded step chunk by chunk."""
+    from cerberus_tpu_torch.infer.steps import make_infer_step
+    from cerberus_tpu_torch.infer.tile import InferManager
+    from cerberus_tpu_torch.parallel.mesh import (
+        make_mesh, make_sharded_infer_step)
+
+    dev = manager.device
+    entries, n = MESH_INFER
+    mesh = make_mesh([dev] * entries)
+    args = (manager.cfg, 144, manager.compute_dtype, manager.out_dtype)
+    sharded = make_sharded_infer_step(manager.model, args[0], mesh, *args[1:])
+    single = make_infer_step(manager.model, *args)
+    img = main_path_images()[1]
+    rng = np.random.default_rng(5)
+    tls = rng.integers(0, img.shape[0] - 448, (n, 2))
+    batch = torch.from_numpy(np.stack([img[y:y + 448, x:x + 448]
+                                       for y, x in tls])).to(dev)
+    out = sharded(batch)
+    chunk = -(-n // entries)
+    padded = torch.cat([batch, batch.new_zeros((chunk * entries - n,
+                                                *batch.shape[1:]))])
+    ref = torch.cat([single(padded[i * chunk:(i + 1) * chunk])
+                     for i in range(entries)])[:n]
+    equal = out.shape == ref.shape and torch.equal(out, ref)
+    ms_mesh = cuda_ms(lambda: sharded(batch), 10)
+    ms_single = cuda_ms(lambda: single(batch), 10)
+    mesh_manager = InferManager(
+        decoder_dict=manager.decoder_dict, model_args=manager.model_args,
+        device=None, mesh=mesh, batch_size=chunk * entries,
+        patch_input_shape=448, patch_output_shape=144)
+    mesh_manager.model.load_state_dict(manager.model.state_dict())
+    canvas_equal = torch.equal(mesh_manager.run_step(padded, 144)[:n], ref)
+    emit({"phase": "mesh_infer", "mesh": "[cuda:0] * %d" % entries,
+          "batch": n, "padded_to": chunk * entries,
+          "equal_to_single_device_chunks": equal,
+          "manager_equal": canvas_equal,
+          "ms_per_batch_mesh": ms_mesh, "ms_per_batch_single": ms_single})
+    if not (equal and canvas_equal):
+        raise AssertionError("mesh_infer: the sharded step differs from the "
+                             "single-device step run chunk by chunk")
+
+
+def phase_sharded_cc(torch, dev):
+    """``ops/sharded_cc`` on virtual meshes of the card: the row-sharded CC
+    over 2, 4 and 8 entries on the kernels phase's 1000^2 and 2560^2
+    planes and the 1000^2 spiral, each byte-equal to one ``cc_label``;
+    the sharded watershed (4 entries) on the 1000^2 and 2560^2 nuclei
+    planes, byte-equal to the same function on CPU copies of the strips
+    (the plain passes), with the pixels where it differs from the
+    single-device ``watershed`` (plateau ties at strip boundaries, JAX's
+    sharded behaviour), the rounds per level and the launches. Launches
+    are counted over the sharded calls only. Returns them."""
+    from cerberus_tpu_torch.ops import sharded_cc as S
+    from cerberus_tpu_torch.ops.cc_label import connected_components
+    from cerberus_tpu_torch.ops.watershed import watershed
+    from cerberus_tpu_torch.parallel.mesh import make_mesh
+
+    launches = {}
+    cases = [("fg1000", blob_prob((1000, 1000), 1600, 2, 3, 12) > 0.5),
+             ("spiral1000", spiral(1000)),
+             ("fg2560", blob_prob((2560, 2560), 10500, 6, 3, 12) > 0.5)]
+    rows = []
+    for case, mask in cases:
+        mask = torch.from_numpy(mask).to(dev)
+        ref = connected_components(mask)
+        for k in MESH_SIZES:
+            mesh = make_mesh([dev] * k)
+            got = counted(torch, launches,
+                          lambda: S.connected_components_sharded(mask, mesh))
+            rows.append({"case": case, "entries": k,
+                         "equal": bool(torch.equal(got, ref)),
+                         "ms": cuda_ms(lambda: S.connected_components_sharded(
+                             mask, mesh), 3),
+                         "single_ms": cuda_ms(
+                             lambda: connected_components(mask), 3)})
+    ws_rows = []
+    cpu_mesh = make_mesh(["cpu"] * 4)
+    mesh = make_mesh([dev] * 4)
+    for case, hw, seed in (("nuclei1000", (1000, 1000), 4),
+                           ("nuclei2560", (2560, 2560), 7)):
+        prob = blob_prob(hw, 1600 if hw[0] == 1000 else 10500, seed, 3, 9)
+        image = torch.from_numpy(-prob).to(dev)
+        markers = connected_components(torch.from_numpy(prob > 0.6).to(dev))
+        wmask = torch.from_numpy(prob > 0.1).to(dev)
+        rounds = []
+        t0 = time.perf_counter()
+        got = counted(torch, launches,
+                      lambda: S.watershed_sharded(image, markers, wmask,
+                                                  mesh, rounds=rounds))
+        seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = S.watershed_sharded(image.cpu(), markers.cpu(), wmask.cpu(),
+                                    cpu_mesh)
+        plain_s = time.perf_counter() - t0
+        single = watershed(image, markers, wmask)
+        ws_rows.append({
+            "case": case, "entries": 4,
+            "equal_to_plain_strips": bool(torch.equal(got.cpu(), plain)),
+            "pixels_differing_from_single_device": int((got != single).sum()),
+            "foreground_px": int((got > 0).sum()),
+            "levels_flooded": len(rounds), "rounds_total": sum(rounds),
+            "rounds_max": max(rounds, default=0), "rounds_per_level": rounds,
+            "seconds": seconds, "plain_strips_seconds": plain_s})
+    emit({"phase": "sharded_cc", "cc": rows, "watershed": ws_rows,
+          "launches": launches})
+    if not all(r["equal"] for r in rows) or not all(
+            r["equal_to_plain_strips"] for r in ws_rows):
+        raise AssertionError("sharded_cc: a sharded result differs")
+    for name in ("cc_label", "propagate_labels"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError("sharded_cc: %s was not launched" % name)
+    return launches
+
+
+@contextlib.contextmanager
+def recording_families(torch, taken):
+    """Record, as CPU copies, the first nuclei tile of at least
+    ``MESH_WSI_TILE_ROWS`` rows that reaches ``sharded_nuclei_watershed``
+    and the largest plane of each (thresh, min_size, ksize) that reaches
+    ``sharded_contour_instances``, in ``taken``: {name: (args, kwargs)}
+    without the mesh and the impl."""
+    from cerberus_tpu_torch.ops import sharded_cc as S
+
+    saved = S.sharded_nuclei_watershed, S.sharded_contour_instances
+
+    def nuclei(inner, cnt, mesh, impl=S.KERNELS):
+        if "nuclei" not in taken and inner.shape[0] >= MESH_WSI_TILE_ROWS:
+            taken["nuclei"] = ((inner.cpu(), cnt.cpu()), {})
+        return saved[0](inner, cnt, mesh, impl)
+
+    def contour(inner, cnt, thresh, min_size, ksize, mesh, impl=S.KERNELS):
+        key = "contour_t%g_m%d_k%d" % (thresh, min_size, ksize)
+        if key not in taken or taken[key][0][0].numel() < inner.numel():
+            taken[key] = ((inner.cpu(), cnt.cpu(), thresh, min_size,
+                           ksize), {})
+        return saved[1](inner, cnt, thresh, min_size, ksize, mesh, impl)
+
+    S.sharded_nuclei_watershed, S.sharded_contour_instances = nuclei, contour
+    try:
+        yield taken
+    finally:
+        S.sharded_nuclei_watershed, S.sharded_contour_instances = saved
+
+
+def hold_sharded_families(torch, dev, taken):
+    """Each recorded family call of the mesh WSI run once more on the
+    card's kernels over ``[cuda:0] * 4`` and with the plain passes over a
+    CPU mesh of 4: byte-equal. The eroded family runs on the largest
+    gland region's inner channel (its gland sizes; on the nuclei tile its
+    plain passes take ~90 s of the CPU). The nuclei tile also runs
+    through the single-device family: the pixels where the two differ
+    are the sharded watershed's plateau ties, printed with the share of
+    them within 16 rows of a strip boundary."""
+    from cerberus_tpu_torch.ops import gpu_postproc, sharded_cc as S
+    from cerberus_tpu_torch.ops.device_postproc import KERNELS, PLAIN
+    from cerberus_tpu_torch.parallel.mesh import make_mesh
+
+    if "nuclei" not in taken:
+        raise AssertionError("mesh_wsi: no nuclei tile of %d rows reached "
+                             "the sharded family" % MESH_WSI_TILE_ROWS)
+    inner, cnt = taken["nuclei"][0]
+    gland = max((k for k in taken if k.startswith("contour_t0.55")),
+                key=lambda k: taken[k][0][0].numel())
+    calls = dict(taken, eroded_gland=((taken[gland][0][0], 0.5, 1500, 11),
+                                      {}))
+    fns = {"nuclei": S.sharded_nuclei_watershed,
+           "eroded_gland": S.sharded_eroded_instances}
+    mesh = make_mesh([dev] * MESH_WSI_ENTRIES)
+    cpu_mesh = make_mesh(["cpu"] * MESH_WSI_ENTRIES)
+    rows = []
+    for name, (args, _) in sorted(calls.items()):
+        fn = fns.get(name, S.sharded_contour_instances)
+        card_args = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+        t0 = time.perf_counter()
+        got = fn(*card_args, mesh, KERNELS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = fn(*args, cpu_mesh, PLAIN)
+        plain_s = time.perf_counter() - t0
+        row = {"family": name, "shape": list(args[0].shape),
+               "equal_to_plain_cpu_mesh": bool(torch.equal(got.cpu(), plain)),
+               "instances": int(torch.unique(got[got > 0]).numel()),
+               "seconds": seconds,
+               "plain_seconds": plain_s}
+        if name == "nuclei":
+            single = gpu_postproc._nuclei_watershed(
+                inner.to(dev).contiguous(), cnt.to(dev).contiguous(),
+                KERNELS).cpu()
+            ties = (got.cpu() != single).nonzero()[:, 0].numpy()
+            edges = np.array([r1 for _, r1 in S._strip_bounds(
+                S._pad_rows(inner, MESH_WSI_ENTRIES)[0].shape[0],
+                MESH_WSI_ENTRIES)][:-1])
+            near = (np.abs(ties[:, None] - edges[None]).min(1) < 16
+                    if len(ties) else np.zeros(0, bool))
+            row.update(foreground_px=int((single > 0).sum()),
+                       pixels_differing_from_single_device=int(len(ties)),
+                       share_within_16_rows_of_a_strip_edge=(
+                           float(near.mean()) if len(ties) else None))
+        rows.append(row)
+    return rows
+
+
+def phase_mesh_wsi(torch, dev, legacy_one):
+    """The WSI CLI with ``--gpu=0,0,0,0`` (a 4-entry virtual mesh: each
+    batch of 4 split one window a replica; the legacy loop, and the
+    nuclei tiles and tissue regions through the row-sharded families) on
+    the wsi phase's slide, ``gpu`` backend. Its gland and lumen payloads
+    equal the single-device legacy loop's at batch 1 (``legacy_one``) by
+    content; the nuclei counts are printed beside it with the pixels
+    where the two runs' filled nuclei differ (the sharded watershed's
+    plateau ties). ``cc_label``, ``hist16384`` and ``propagate_labels``
+    must launch; ``watershed`` does not run on the sharded path. The
+    family calls of a 2560-row nuclei tile and of the largest gland and
+    lumen regions are then held against the plain passes on a CPU mesh
+    (``hold_sharded_families``). Returns the launches."""
+    from cerberus_tpu_torch.ops import cuda_build
+
+    work = os.path.join(cuda_build.BUILD_DIR, "smoke_mesh_wsi")
+    shutil.rmtree(work, ignore_errors=True)
+    taken = {}
+    try:
+        write_slide(os.path.join(work, "input", "slide"))
+        with recording_families(torch, taken):
+            run = run_wsi_cli(
+                torch, work, os.path.join(work, "input"),
+                ("--wsi_file_ext=.npy", "--postproc_backend=gpu",
+                 "--batch_size=%d" % MESH_WSI_ENTRIES),
+                gpu=",".join(["0"] * MESH_WSI_ENTRIES))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    families = hold_sharded_families(torch, dev, taken)
+    dat, ref = run["dat"], legacy_one["dat"]
+    equal = {t: payload({t: dat[t]}) == payload({t: ref[t]})
+             for t in ("Gland", "Lumen")}
+    ties = int((foreground(dat["Nuclei"], WSI_HW)
+                != foreground(ref["Nuclei"], WSI_HW)).sum())
+    emit_cli("mesh_wsi", run, gland_lumen_equal_to_legacy_batch1=equal,
+             nuclei_instances_mesh_single=[len(dat["Nuclei"]),
+                                           len(ref["Nuclei"])],
+             nuclei_pixels_differing=ties,
+             nuclei_centroid_match_3px=centroid_match(dat["Nuclei"],
+                                                      ref["Nuclei"]),
+             families_against_plain=families)
+    check_cli_outputs(run, "mesh_wsi", kernels=False)
+    if not all(row["equal_to_plain_cpu_mesh"] for row in families):
+        raise AssertionError("mesh_wsi: a sharded family on the card "
+                             "differs from its plain passes")
+    if "Legacy Read Time" not in run["spans"]:
+        raise AssertionError("mesh_wsi: the legacy loop did not run")
+    if not all(equal.values()):
+        raise AssertionError("mesh_wsi: gland/lumen differ from the "
+                             "single-device legacy loop at batch 1")
+    for name in ("cc_label", "hist16384", "propagate_labels"):
+        if run["launches"][name] <= 0:
+            raise AssertionError("mesh_wsi: %s was not launched" % name)
+    return run["launches"]
+
+
+def dp_rank(rank, world, kwargs, state, batch, keep):
+    """One rank of ``dp_train`` (gloo on the card): the float64
+    data-parallel step (resnet18, 96^2, batch 4) from ``state``, then the
+    ResNet-34 448^2 batch-12 bf16 step timed. Returns (metrics, gradients
+    and state after as numpy on rank 0, a digest of the state after, ms per
+    bf16 step)."""
+    import torch
+
+    from cerberus_tpu_torch.config import ModelConfig
+    from cerberus_tpu_torch.models.net_desc import NetDesc, init_weights
+    from cerberus_tpu_torch.parallel.mesh import (
+        make_mesh, make_sharded_train_step)
+
+    helpers = train_helpers()
+    mesh = make_mesh(group="world")
+    dev = mesh.local_device
+    cfg = ModelConfig.from_kwargs(kwargs)
+    model = NetDesc(cfg)
+    model.load_state_dict(state)
+    model.to(dev, torch.float64)
+    step = make_sharded_train_step(cfg, mesh,
+                                   helpers.LOSS_KWARGS_CLASS_WEIGHTS,
+                                   {"lr": 1e-3}, return_grads=True,
+                                   model=model)
+    with tf32_off(torch):
+        metrics, grads = step(batch, keep=keep.to(dev))
+    state_after = {k: v.detach().cpu().numpy()
+                   for k, v in model.state_dict().items()}
+    digest = hashlib.sha256(b"".join(state_after[k].tobytes()
+                                     for k in sorted(state_after)))
+    # rank 0 sends the tensors, every rank a digest of its state
+    f64 = ({k: float(v) for k, v in metrics.items()},
+           {k: v.cpu().numpy() for k, v in grads.items()} if rank == 0
+           else None, state_after if rank == 0 else None,
+           digest.hexdigest())
+    del step, model, grads
+    big_kwargs = helpers.model_kwargs("resnet34")
+    big_cfg = ModelConfig.from_kwargs(big_kwargs)
+    model = init_weights(NetDesc(big_cfg), torch.Generator().manual_seed(0))
+    step = make_sharded_train_step(
+        big_cfg, mesh, helpers.LOSS_KWARGS_CLASS_WEIGHTS, {"lr": 1e-3},
+        compute_dtype=torch.bfloat16, model=model)
+    big = helpers.make_batch(np.random.default_rng(0), n=TRAIN_BATCH,
+                             hw=TRAIN_HW, cfg=big_cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    times = []
+    for i in range(sum(DP_TIMED)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(big, generator=gen)
+        torch.cuda.synchronize()
+        if i >= DP_TIMED[0]:
+            times.append((time.perf_counter() - t0) * 1e3)
+    del step, model, big
+    torch.cuda.empty_cache()  # the rank stays for the next phase
+    return f64 + (statistics.median(times),)
+
+
+def phase_dp_train(torch, dev):
+    """The data-parallel train step on a process mesh of two gloo ranks
+    that share the card. In float64 (resnet18, six heads, 96^2, batch 4,
+    TF32 off; ``train_parity``'s case) it equals the single-device card
+    step on the global batch within ``train_parity``'s float64 tolerances
+    (1e-8 loss and BN statistics, 1e-6 of each gradient's largest
+    magnitude). The ResNet-34 448^2 batch-12 bf16 step's ms are printed
+    beside the single-device ``train_step`` (two ranks on one card: no
+    speed-up is expected)."""
+    helpers = train_helpers()
+    kwargs, state, batch, keep = helpers.parity_case()
+    with tf32_off(torch):
+        ref = helpers.step_on(dev, kwargs, state, batch, keep,
+                              dtype=torch.float64)
+    ranks = run_ranks(dp_rank, RANKS, (kwargs, state, batch, keep),
+                      timeout_s=600)
+    metrics, grads, state_after = ranks[0][:3]
+    got = (metrics, {k: torch.from_numpy(v) for k, v in grads.items()},
+           {k: torch.from_numpy(v) for k, v in state_after.items()})
+    errors = helpers.worst_errors(got, ref)
+    same = len({r[3] for r in ranks}) == 1
+    ok = (all(errors[k] <= v for k, v in helpers.PARITY_F64_TOLS.items())
+          and errors["zero_grad"] <= 1 and same)
+    emit({"phase": "dp_train", "ranks": RANKS, "backend": "gloo",
+          "device": "cuda:0 (both ranks)",
+          "f64": {"setting": "resnet18, six heads, 96^2, global batch 4, "
+                             "TF32 off", **errors,
+                  "tolerances": helpers.PARITY_F64_TOLS,
+                  "ranks_hold_the_same_state": same},
+          "bf16_resnet34": {"hw": TRAIN_HW, "global_batch": TRAIN_BATCH,
+                            "ms_per_step": [r[4] for r in ranks]},
+          "ok": ok})
+    if not ok:
+        raise AssertionError("dp_train: the data-parallel step differs from "
+                             "the single-device step")
+
+
+def tiles_rank(rank, world, model_dir, input_dir, out_dir):
+    """One rank of ``distributed_tiles``: its strided share of the images
+    (``shard_slides``) through the tile CLI's manager on the card at
+    batch 1. Returns the share."""
+    from cerberus_tpu_torch.parallel.distributed import shard_slides
+
+    names = sorted(os.listdir(input_dir))
+    mine, _ = shard_slides(names, [None] * len(names))
+    my_in = os.path.join(out_dir, "_in_p%d" % rank)
+    os.makedirs(my_in)
+    for name in mine:
+        shutil.copy(os.path.join(input_dir, name), os.path.join(my_in, name))
+    run_tile_dir(model_dir, my_in, out_dir)
+    return mine
+
+
+def run_tile_dir(model_dir, input_dir, out_dir):
+    """The tile CLI's manager over ``input_dir`` at ``--batch_size=1``."""
+    from cerberus_tpu_torch.config import DEFAULT_TARGET_LIST
+
+    import torch
+
+    manager = load_model_dir(torch, model_dir)
+    manager.process_file_list({
+        "nr_inference_workers": 0, "nr_post_proc_workers": 0,
+        "batch_size": 1, "input_dir": input_dir, "output_dir": out_dir,
+        "patch_input_shape": 448, "patch_output_shape": 144,
+        "patch_output_overlap": 0,
+        "postproc_list": list(DEFAULT_TARGET_LIST)})
+
+
+def phase_distributed_tiles(torch):
+    """Two gloo processes on the card each take a strided share of the
+    ``tile_cli_cache`` phase's ten images (``shard_slides``) through the
+    tile CLI's manager at ``--batch_size=1``; the union of their ``.mat``
+    files equals one process's run over all ten."""
+    import cv2
+
+    from cerberus_tpu_torch.ops import cuda_build
+
+    work = os.path.join(cuda_build.BUILD_DIR, "smoke_distributed_tiles")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        model_dir = os.path.join(work, "model")
+        write_model(torch, model_dir, True)
+        images = serve_images()
+        os.makedirs(os.path.join(work, "input"))
+        for name, img in images.items():
+            cv2.imwrite(os.path.join(work, "input", name + ".png"),
+                        cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        t0 = time.perf_counter()
+        shares = run_ranks(tiles_rank, RANKS, (
+            model_dir, os.path.join(work, "input"),
+            os.path.join(work, "dist")), timeout_s=600)
+        dist_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_tile_dir(model_dir, os.path.join(work, "input"),
+                     os.path.join(work, "single"))
+        single_s = time.perf_counter() - t0
+        names = sorted(images)
+        a = read_mats(os.path.join(work, "dist"), names)
+        b = read_mats(os.path.join(work, "single"), names)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    union = sorted(n for share in shares for n in share)
+    equal = union == sorted(n + ".png" for n in names) and all(
+        set(a[key]) == set(b[key]) and all(
+            np.array_equal(a[key][k], b[key][k]) for k in b[key])
+        for key in b)
+    emit({"phase": "distributed_tiles", "ranks": RANKS, "backend": "gloo",
+          "shares": shares, "union_equal_to_single": equal,
+          "seconds_two_processes": dist_s, "seconds_single": single_s,
+          "nuclei_instances": sum(int(b[(n, "nuclei")]["inst_map"].max())
+                                  for n in names)})
+    if not equal:
+        raise AssertionError("distributed_tiles: the two processes' .mat "
+                             "files differ from one process's")
+
+
+def phase_multi_gpu(torch, dev, model_dir, legacy_one):
+    """The multi-GPU phases, with their seconds. Returns the launches of
+    ``mesh_wsi`` and ``sharded_cc``."""
+    seconds = {}
+    t0 = time.perf_counter()
+    manager = make_manager(torch, model_dir, True)
+    phase_mesh_infer(torch, manager)
+    del manager
+    torch.cuda.empty_cache()
+    seconds["mesh_infer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = {"sharded_cc": phase_sharded_cc(torch, dev)}
+    seconds["sharded_cc"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["mesh_wsi"] = phase_mesh_wsi(torch, dev, legacy_one)
+    seconds["mesh_wsi"] = time.perf_counter() - t0
+    try:
+        for name, fn in (("dp_train", lambda: phase_dp_train(torch, dev)),
+                         ("distributed_tiles",
+                          lambda: phase_distributed_tiles(torch))):
+            t0 = time.perf_counter()
+            fn()
+            seconds[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        close_ranks()
+    emit({"phase": "multi_gpu_seconds", **seconds})
+    return launches
+
+
 def run() -> int:
     import torch
 
@@ -3063,8 +3603,9 @@ def run() -> int:
             torch, phase_readers(torch, readers_work))
     finally:
         shutil.rmtree(readers_work, ignore_errors=True)
-    legacy_run = phase_wsi_cli_legacy(torch, resident_run)
+    legacy_run, legacy_one = phase_wsi_cli_legacy(torch, resident_run)
     phase_wsi_cli_cpu(torch, legacy_run)
+    multi_launches = phase_multi_gpu(torch, dev, model_dir, legacy_one)
     phase_training(torch, dev)
     dsf_launches = phase_dsf(torch, dev)
 
@@ -3082,6 +3623,8 @@ def run() -> int:
                            for path, counts in serve_launches.items()},
                         **{"%s_launches" % path: counts[name]
                            for path, counts in dsf_launches.items()},
+                        **{"%s_launches" % path: counts.get(name, 0)
+                           for path, counts in multi_launches.items()},
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "device_ms": row["device_ms"],
                         "device_ms_from": row["device_ms_from"],

@@ -5,6 +5,8 @@ only; no JAX)."""
 import numpy as np
 
 from cerberus_tpu_torch.config import DEFAULT_DECODER_KWARGS, ModelConfig
+from cerberus_tpu_torch.models.convert import jax_params_from_state_dict
+from cerberus_tpu_torch.models.net_desc import NetDesc, init_weights
 from cerberus_tpu_torch.train.steps import head_order
 
 
@@ -16,6 +18,17 @@ def model_kwargs(arch="resnet18", **flags):
 
 MODEL_KWARGS = model_kwargs()
 CFG = ModelConfig.from_kwargs(MODEL_KWARGS)
+
+
+def jax_layout_params(kwargs=MODEL_KWARGS, seed=0):
+    """The port's seeded init (``init_weights``) as a JAX-layout tree of
+    numpy arrays: weights that both packages load, made without tracing
+    JAX's init."""
+    import torch
+
+    model = init_weights(NetDesc(ModelConfig.from_kwargs(kwargs)),
+                         torch.Generator().manual_seed(seed))
+    return jax_params_from_state_dict(model.state_dict())
 
 LOSS_KWARGS = {
     "loss_info": {

@@ -524,3 +524,25 @@ def test_dsf_forward_on_card_matches_cpu(dev):
                 assert err <= 1e-3, (arch, head, err)
     finally:
         _tf32_restore(saved)
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_sharded_cc_on_a_virtual_mesh_equals_cc_label(dev, k):
+    """``ops/sharded_cc`` on ``[cuda] * k`` (the card's kernels on every
+    strip): the CC equals one ``cc_label``; the watershed equals the same
+    function on CPU strips (the plain passes)."""
+    from cerberus_tpu_torch.ops import sharded_cc as S
+    from cerberus_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh([dev] * k)
+    prob = _blob_prob((600, 600), 500, k)
+    mask = torch.from_numpy(prob > 0.5).to(dev)
+    assert torch.equal(S.connected_components_sharded(mask, mesh),
+                       connected_components(mask))
+    markers = connected_components(torch.from_numpy(prob > 0.6).to(dev))
+    image = torch.from_numpy(-prob).to(dev)
+    wmask = torch.from_numpy(prob > 0.1).to(dev)
+    got = S.watershed_sharded(image, markers, wmask, mesh)
+    plain = S.watershed_sharded(image.cpu(), markers.cpu(), wmask.cpu(),
+                                make_mesh(["cpu"] * k))
+    assert torch.equal(got.cpu(), plain)

@@ -53,6 +53,9 @@ print("SERVE", sorted(m for m in sys.modules if m in (
 print("TRAIN", sorted(m for m in sys.modules if m.startswith(
     ("cerberus_tpu_torch.train.", "cerberus_tpu_torch.data.",
      "cerberus_tpu_torch.run_train"))))
+print("PARALLEL", sorted(m for m in sys.modules if m.startswith(
+    ("cerberus_tpu_torch.parallel", "cerberus_tpu_torch.ops.sharded_cc"))))
+print("DIST", "torch.distributed.nn" in sys.modules)
 """
 
 
@@ -75,6 +78,13 @@ def test_import_all_modules_loads_no_jax_cv2_yaml_or_reference():
             "cerberus_tpu_torch.ops.tissue_mask"} <= set(wsi), wsi
     assert len(eval(lines["SERVE"])) == 8, lines["SERVE"]
     train = set(eval(lines["TRAIN"]))
+    assert set(eval(lines["PARALLEL"])) == {
+        "cerberus_tpu_torch.parallel", "cerberus_tpu_torch.parallel.mesh",
+        "cerberus_tpu_torch.parallel.distributed",
+        "cerberus_tpu_torch.ops.sharded_cc"}
+    # torch.distributed's autograd collectives load inside the functions
+    # that all-reduce
+    assert lines["DIST"] == "False"
     assert {"cerberus_tpu_torch.run_train"} | {
         "cerberus_tpu_torch.train." + name for name in _TRAIN_MODULES} | {
         "cerberus_tpu_torch.data." + name
@@ -136,7 +146,8 @@ def test_source_imports_no_jax_or_reference_package():
 def test_kernel_wrappers_have_no_fallback():
     for name in ("ops/cc_label.py", "ops/hist16384.py", "ops/watershed.py",
                  "ops/cuda_build.py", "ops/device_postproc.py",
-                 "ops/gpu_postproc.py", "native/patch_gather.py"):
+                 "ops/gpu_postproc.py", "ops/sharded_cc.py",
+                 "parallel/mesh.py", "native/patch_gather.py"):
         text = (PKG / name).read_text()
         assert not re.search(r"^\s*(try:|except\b)", text, re.M), name
 

@@ -113,9 +113,16 @@ def test_cli_refuses_what_is_not_ported(tmp_path, settings, argv, item):
 
 
 def test_mesh_is_not_ported():
+    """Data-parallel training runs on a process mesh (one process per
+    device); a single-controller mesh of two devices is refused, naming
+    ROADMAP item 7."""
+    from cerberus_tpu_torch.parallel.mesh import make_mesh
+
     with pytest.raises(NotImplementedError, match="item 7"):
         opt.check_supported(ModelConfig.from_kwargs(MODEL_KWARGS),
-                            mesh=object())
+                            mesh=make_mesh(["cpu", "cpu"]))
+    opt.check_supported(ModelConfig.from_kwargs(MODEL_KWARGS),
+                        mesh=make_mesh(["cpu"]))
 
 
 def test_cli_trains_dsf_cnn_two_steps(tmp_path, monkeypatch):

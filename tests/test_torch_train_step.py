@@ -86,8 +86,11 @@ def _random_params(cfg, seed=0):
     return _PARAMS[cfg, seed]
 
 
-def _make_params(cfg, seed):
-    params = _np(init_net_params(jax.random.PRNGKey(seed), cfg))
+def _make_params(cfg, seed, params=None):
+    """``params`` (default: the JAX init) with randomised BN and biases,
+    tamed heads."""
+    if params is None:
+        params = _np(init_net_params(jax.random.PRNGKey(seed), cfg))
     rng = np.random.default_rng(seed + 1)
     out = {}
     for name, leaf in params.items():

@@ -58,11 +58,12 @@ IN_SHAPE, OUT_SHAPE = 144, 48
 TASKS = ("Nuclei", "Gland", "Lumen")
 
 
-def _biased_params(seed=5):
+def _biased_params(seed=5, params=None):
     """``tests/test_resident_wsi.py``'s model: INST heads scaled 0.01x,
-    bias [-1.5, 1.5, -1.0]."""
-    cfg = ModelConfig.from_kwargs(MODEL_KWARGS)
-    params = init_net_params(jax.random.PRNGKey(seed), cfg)
+    bias [-1.5, 1.5, -1.0], on ``params`` (default: the JAX init)."""
+    if params is None:
+        cfg = ModelConfig.from_kwargs(MODEL_KWARGS)
+        params = init_net_params(jax.random.PRNGKey(seed), cfg)
     params = {k: {kk: np.asarray(vv) for kk, vv in v.items()}
               for k, v in params.items()}
     for head in ("Gland", "Nuclei", "Lumen"):

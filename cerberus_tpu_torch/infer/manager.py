@@ -17,6 +17,11 @@ single-controller ``parallel.mesh.Mesh`` shards every batch of
 DataParallel of the reference (the CLIs build it from a ``--gpu``
 list). Batches are gathered, and canvases stitched, on
 ``mesh.devices[0]``, which is the manager's ``device``.
+
+``fuse_decoders=True`` (a constructor keyword, default False): the step of
+the manager's own device runs the towers as one grouped bank
+(``steps.make_infer_step``'s knob; the JAX manager has no such keyword,
+its step takes it). ``CERBERUS_PAIRED`` is read when a step is bound.
 """
 from __future__ import annotations
 
@@ -71,6 +76,7 @@ class InferManager:
         on_card = self.device.type == "cuda"
         self.compute_dtype = torch.bfloat16 if on_card else torch.float32
         self.out_dtype = torch.float16 if on_card else torch.float32
+        self.fuse_decoders = False
         for variable, value in kwargs.items():
             setattr(self, variable, value)
         self.cfg = ModelConfig.from_kwargs(self.model_args)
@@ -113,4 +119,5 @@ class InferManager:
 
     def _device_step(self, output_shape: int) -> Callable:
         return make_infer_step(self.model, self.cfg, output_shape,
-                               self.compute_dtype, self.out_dtype)
+                               self.compute_dtype, self.out_dtype,
+                               fuse_decoders=self.fuse_decoders)

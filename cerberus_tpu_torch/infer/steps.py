@@ -16,22 +16,33 @@ the towers run on the kept window plus its margin, and where the geometry
 admits no plan the towers run at full size and are cropped.
 ``CERBERUS_VALID_REGION=0`` selects the full towers, as it does for the
 JAX package. ``CERBERUS_DEBUG=1`` (also read when a step is bound) checks
-every head's logits for NaN and Inf. The JAX package's width-paired and
-fused-bank forwards are not ported.
+every head's logits for NaN and Inf.
+
+The JAX package's TPU lowerings are opt-in knobs with its meaning and its
+off-TPU defaults (off): ``CERBERUS_PAIRED=1`` runs the valid-region towers
+width-paired (``models/paired_decode``; the encoder front too where
+``paired_encoder.use_paired_front`` says so, ``CERBERUS_PAIRED_ENCODER``
+overriding), and ``fuse_decoders=True`` runs the towers as one bank of
+grouped convolutions (``models/fused_decoder``; full towers).
 """
 from __future__ import annotations
 
+import logging
 import os
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..config import ModelConfig
 from ..data.patching import make_channel_index_map
 from ..models.layers import center_crop
+from ..models.fused_decoder import build_fused_decoder, fused_head_outputs
 from ..models.net_desc import NetDesc
+from ..models.paired_decode import paired_head_outputs, supports_paired
 from ..models.valid_decode import supports_valid_region, valid_head_outputs
 from ..utils.debug import check_finite, debug_mode_requested
+
+_UNFUSED_LOGGED = set()
 
 
 def pclass_cells(in_size: int, out_size: int) -> int:
@@ -69,22 +80,32 @@ def canvas_from_logits(pred: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def head_outputs(model: NetDesc, x: torch.Tensor, output_shape: int,
-                 valid_region: bool = True) -> Dict[str, torch.Tensor]:
+                 valid_region: bool = True, paired: bool = False,
+                 fused=None) -> Dict[str, torch.Tensor]:
     """NCHW input in [0, 1] -> {head_code: NCHW logits}: valid-region
-    towers where ``supports_valid_region`` gives a plan, else full towers."""
+    towers where ``supports_valid_region`` gives a plan (paired with
+    ``paired`` where ``supports_paired`` holds), else full towers, or the
+    bank ``fused`` (``(bank, head_specs)`` of ``build_fused_decoder``),
+    which always runs full towers (``cerberus_tpu/infer/steps.py:
+    74-135``)."""
     in_size = int(x.shape[-1])
     cells = pclass_cells(in_size, output_shape)
     plan = (supports_valid_region(model.cfg, in_size, output_shape)
-            if valid_region else None)
+            if valid_region and fused is None else None)
     if plan is not None:
+        if paired and supports_paired(plan, in_size):
+            return paired_head_outputs(model, x, plan, cells)
         return valid_head_outputs(model, x, plan, cells)
+    if fused is not None:
+        return fused_head_outputs(model, *fused, x, cells)
     return model(x, cells)
 
 
 def infer_outputs(model: NetDesc, imgs: torch.Tensor, cfg: ModelConfig,
                   output_shape: int, compute_dtype=torch.float32,
                   out_dtype=torch.float32, valid_region: bool = True,
-                  check: bool = False) -> torch.Tensor:
+                  check: bool = False, paired: bool = False,
+                  fused=None) -> torch.Tensor:
     """uint8 NHWC batch -> (N, output_shape, output_shape, C) canvas
     tensor. ``compute_dtype`` other than f32 runs the forward under
     autocast (bf16 on the card, as the JAX package computes in bf16).
@@ -94,26 +115,50 @@ def infer_outputs(model: NetDesc, imgs: torch.Tensor, cfg: ModelConfig,
     with torch.no_grad(), torch.autocast(
             device_type=x.device.type, dtype=compute_dtype,
             enabled=compute_dtype != torch.float32):
-        pred = head_outputs(model, x, output_shape, valid_region)
+        pred = head_outputs(model, x, output_shape, valid_region, paired,
+                            fused)
     if check:
         for head_code, logits in pred.items():
             check_finite(head_code, logits)
     return canvas_from_logits(pred, cfg, output_shape, out_dtype)
 
 
+def bank_or_none(model: NetDesc) -> Optional[tuple]:
+    """``build_fused_decoder(model)``, or None where it raises
+    ``KeyError`` (towers that are no ``ConvBlock`` stacks, as DSF-CNN's):
+    the JAX package's rule (``cerberus_tpu/infer/steps.py:186-192``), the
+    step then running the towers one after another. Logged once per
+    encoder."""
+    try:
+        return build_fused_decoder(model)
+    except KeyError as err:
+        arch = model.cfg.encoder_backbone_name
+        if arch not in _UNFUSED_LOGGED:
+            _UNFUSED_LOGGED.add(arch)
+            logging.getLogger(__name__).info(
+                "fuse_decoders: %s towers have no grouped bank (missing %s);"
+                " running them one after another", arch, err)
+        return None
+
+
 def make_infer_step(model: NetDesc, cfg: ModelConfig, output_shape: int = 144,
                     compute_dtype=torch.bfloat16,
-                    out_dtype=torch.float16) -> Callable:
+                    out_dtype=torch.float16,
+                    fuse_decoders: bool = False) -> Callable:
     """Bind the step for one output shape: uint8 NHWC batch on the model's
-    device -> (N, out, out, C) tensor of ``out_dtype``. Valid-region
-    decoding unless ``CERBERUS_VALID_REGION=0`` (read here, as the JAX
-    package's ``make_infer_step`` does), with the NaN/Inf check where
-    ``CERBERUS_DEBUG`` is set."""
+    device -> (N, out, out, C) tensor of ``out_dtype``. Read here, as the
+    JAX package's ``make_infer_step`` reads them: valid-region decoding
+    unless ``CERBERUS_VALID_REGION=0``; the paired towers with
+    ``CERBERUS_PAIRED=1`` (default 0: the card is not a TPU); the NaN/Inf
+    check where ``CERBERUS_DEBUG`` is set. ``fuse_decoders``: the grouped
+    bank (``bank_or_none``), built here from the model's weights."""
     valid_region = os.environ.get("CERBERUS_VALID_REGION", "1") != "0"
+    paired = os.environ.get("CERBERUS_PAIRED", "0") == "1"
     check = debug_mode_requested()
+    fused = bank_or_none(model) if fuse_decoders else None
 
     def step(imgs: torch.Tensor) -> torch.Tensor:
         return infer_outputs(model, imgs, cfg, output_shape, compute_dtype,
-                             out_dtype, valid_region, check)
+                             out_dtype, valid_region, check, paired, fused)
 
     return step

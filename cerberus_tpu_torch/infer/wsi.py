@@ -669,7 +669,7 @@ class InferManager(BaseInferManager):
             with ThreadPoolExecutor(max_workers=3) as host_pool, \
                     torch.profiler.record_function("wsi/nuclei_sets"):
                 # the tissue test sums the whole mask: once, for every tile
-                # of every set, when a tile without a patch top-left asks
+                # of every set, when a tile no patch output reaches asks
                 all_bounds = np.concatenate([b for b, _ in pp_sets])
                 first = np.cumsum([0] + [len(b) for b, _ in pp_sets])
                 tissue = None
@@ -678,7 +678,13 @@ class InferManager(BaseInferManager):
                     for tile_idx, tile_bounds in enumerate(pp_bounds):
                         if set_idx == 0 and tile_idx not in deferred:
                             continue  # already post-processed on the card
-                        if len(assign_patches_to_tiles(
+                        # skipped only where no patch output reaches the
+                        # tile and it holds no tissue: an 864 px dense
+                        # output covers a 256 px strip that holds none of
+                        # its top-lefts (the JAX package asks for a
+                        # top-left and loses that strip's nuclei where the
+                        # mask ends short of it; ROADMAP section 3)
+                        if len(resident_wsi.patches_touching(
                                 patch_outputs, tile_bounds)) == 0:
                             if tissue is None:
                                 tissue = filter_coordinates(

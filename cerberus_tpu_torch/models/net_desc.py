@@ -31,7 +31,7 @@ Module names equal the reference state_dict names
 loads with ``load_state_dict(strict=True)``.
 
 ``NetDesc.forward_train`` is the training forward (JAX ``net_forward`` with
-``bn_sink``, ``dropout_rng`` and ``remat``): batch-statistics BN
+``bn_sink``, ``dropout_rng``, ``remat`` and ``paired``): batch-statistics BN
 (``layers.BatchNorm2d``), dropout 0.3 in the Patch-Class MLP, full towers,
 and ``torch.utils.checkpoint`` regions. Subtype fine-tuning
 (``subtype_frozen_prefixes``) freezes every module but the active TYPE
@@ -312,8 +312,8 @@ class NetDesc(nn.Module):
         return self
 
     def forward_train(self, x: torch.Tensor, remat=False,
-                      keep: Optional[torch.Tensor] = None
-                      ) -> Dict[str, torch.Tensor]:
+                      keep: Optional[torch.Tensor] = None,
+                      paired: bool = False) -> Dict[str, torch.Tensor]:
         """The training forward: NCHW float in [0, 1] -> {head: NCHW
         logits}, full towers, BN per its mode (``train()``).
 
@@ -323,16 +323,32 @@ class NetDesc(nn.Module):
         ``remat`` (``False``/``True``/``"backbone"``/``"towers"``) runs the
         encoder and/or each tower with its output heads as one
         ``torch.utils.checkpoint`` region whose recompute folds no BN
-        statistics; the Patch-Class head stays outside every region."""
+        statistics; the Patch-Class head stays outside every region.
+        ``paired`` (JAX ``net_forward(paired=True)``, ``run_train
+        --paired``): the encoder front (``paired_encoder``) and each
+        tower's 64-channel levels and heads (``paired_tower``) run
+        width-paired, the same regions checkpointed; ``ValueError``
+        unless the encoder is a basic-block ResNet and W % 4 == 0."""
         if remat not in REMAT_MODES:
             raise ValueError("remat must be bool or 'backbone'/'towers', "
                              "got %r" % (remat,))
+        if paired:
+            from .paired_encoder import supports_paired_encoder
+
+            if not supports_paired_encoder(self.cfg.encoder_backbone_name,
+                                           int(x.shape[3])):
+                raise ValueError(
+                    "paired=True needs a basic-block resnet and width %% 4 "
+                    "== 0 (got %s, W=%d)" % (self.cfg.encoder_backbone_name,
+                                             x.shape[3]))
+        encoder = self._paired_backbone if paired else self.backbone
+        branch = self._paired_branch if paired else self._branch
         feats, bottom = self._conv_map(self._region(
-            self.backbone, remat in (True, "backbone"), self.backbone, x))
+            encoder, remat in (True, "backbone"), self.backbone, x))
         out: Dict[str, torch.Tensor] = {}
         for decoder_name in self._decoders():
             out.update(self._region(
-                self._branch, remat in (True, "towers"),
+                branch, remat in (True, "towers"),
                 nn.ModuleList([self.decoder_head[decoder_name],
                                self.output_head[decoder_name]]),
                 decoder_name, *feats))
@@ -340,6 +356,29 @@ class NetDesc(nn.Module):
             head = self.decoder_head["Patch-Class"]
             out["Patch-Class"] = patch_class_head(head, bottom, keep)
         return out
+
+    def _paired_backbone(self, x: torch.Tensor):
+        """The paired encoder front, its x0 / x1 unpaired again: the towers
+        take the regular pyramid (JAX ``net_forward``'s ``run_backbone``;
+        on a channels-last tensor the unpairing is a view)."""
+        from .paired_decode import unpair_w
+        from .paired_encoder import resnet_forward_paired
+
+        feats = resnet_forward_paired(self.backbone, x)
+        return [unpair_w(feats[0]), unpair_w(feats[1])] + feats[2:]
+
+    def _paired_branch(self, decoder_name: str, *feats
+                       ) -> Dict[str, torch.Tensor]:
+        """``_branch`` with the tower's 64-channel levels and the heads
+        width-paired (``paired_tower``)."""
+        from .paired_tower import paired_train_head, paired_train_tower
+
+        prev = paired_train_tower(self.decoder_head[decoder_name],
+                                  list(feats))
+        return {key: paired_train_head(
+                    self.output_head[decoder_name][head_name], prev)
+                for name, head_name, key in self._heads
+                if name == decoder_name}
 
     @staticmethod
     def _region(fn, remat: bool, module: nn.Module, *args):

@@ -162,7 +162,11 @@ def make_sharded_infer_step(model, cfg: ModelConfig, mesh: Mesh,
     come back (the CLIs' default batches of 10 do not divide an 8-card
     host; the reference's DataParallel took any batch). Each chunk runs
     ``infer/steps.make_infer_step``'s step on its replica, so valid-region
-    decoding, dense windows and DSF nets work as on one device."""
+    decoding, dense windows and DSF nets work as on one device. A chunk's
+    step sees the per-device batch (the padded batch over the mesh size),
+    which is what JAX's ``data_parallel=n_dev`` gives the paired-front
+    gate of ``CERBERUS_PAIRED=1`` (``cerberus_tpu/parallel/mesh.py:
+    70-73``)."""
     if mesh.group is not None:
         raise ValueError("inference shards over a single-controller mesh; "
                          "a process mesh is for the data-parallel train "
@@ -205,7 +209,7 @@ def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, loss_kwargs=None,
                             optimizer_kwargs=None,
                             compute_dtype=torch.float32, grad_accum: int = 1,
                             remat=False, return_grads: bool = False, *,
-                            model):
+                            model, paired: bool = False):
     """The data-parallel train step on a process mesh: a
     ``train/steps.TrainStep`` on this rank's device whose call takes the
     GLOBAL batch (each rank slices its rows) and equals the single-device
@@ -216,6 +220,9 @@ def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, loss_kwargs=None,
     microbatches, each split over the ranks; a batch that does not divide
     by ``K x ranks`` raises ``ValueError``. The weights are broadcast from
     rank 0 when the step is built.
+
+    ``paired``: the width-paired training forward, its BN statistics
+    spanning the ranks as the unpaired ones do.
 
     A mesh of one device is the single-device step. A single-controller
     mesh of more than one device raises ``NotImplementedError``: BN and
@@ -228,4 +235,4 @@ def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, loss_kwargs=None,
     model.to(mesh.local_device)
     return TrainStep(model, cfg, loss_kwargs, optimizer_kwargs,
                      compute_dtype, remat, grad_accum, return_grads,
-                     group=mesh.group)
+                     group=mesh.group, paired=paired)

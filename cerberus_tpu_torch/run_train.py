@@ -36,8 +36,13 @@ Options:
                        sequential microbatches (grads averaged, one Adam
                        update, BN stats folded per microbatch in order).
                        batch_size must be divisible by <k>. [default: 1]
-  --paired             The JAX package's width-paired lowerings; not ported
-                       (raises).
+  --paired             Width-paired encoder front AND decoder-tower finest
+                       levels in the training forward+backward
+                       (models/paired_encoder.py, models/paired_tower.py), the
+                       JAX package's TPU lowering of the 64-channel stages.
+                       Divergence is conv-accumulation reassociation only.
+                       Requires a basic-block resnet backbone and input
+                       width % 4 == 0. Default keeps the unpaired path.
 
 Run as ``python -m cerberus_tpu_torch.run_train``. The flags are those of
 the JAX package's ``run_train.py``. ``CERBERUS_DEFAULT_DEVICE=cpu`` trains
@@ -118,9 +123,8 @@ def main(argv=None, device=None):
                          "--grad_accum=%d" % (batch_size, grad_accum))
 
     paramset = ParamSet.from_yaml(args["--settings"])
-    from .train.opt import check_supported, get_config, run_training
+    from .train.opt import get_config, run_training
 
-    check_supported(paramset.model_config, paired=bool(args["--paired"]))
     log_dir = args["--log_dir"]
     mkdir(log_dir)
     config = get_config(paramset.model_kwargs, paramset.loss_kwargs,
@@ -151,7 +155,7 @@ def main(argv=None, device=None):
             seed=int(args["--seed"]), pretrained_params=pretrained_params,
             compute_dtype=torch.bfloat16 if args["--bf16"] else None,
             remat=REMAT_ARGS[remat_arg], grad_accum=grad_accum,
-            device=device)
+            paired=bool(args["--paired"]), device=device)
 
 
 if __name__ == "__main__":

@@ -15,9 +15,11 @@ trains, the DSF-CNN ones included. ``mesh`` (``cerberus_tpu/train/opt.py:
 112-147``): a process mesh (one process per card, every process calling
 ``build_trainer`` with loaders that yield the same global batches) trains
 data-parallel through ``parallel/mesh.make_sharded_train_step``; only its
-first rank writes logs and checkpoints. Not ported: the width-paired
-lowerings (``paired``), ROADMAP queue 1 item 9, which raise
-``NotImplementedError`` naming the item.
+first rank writes logs and checkpoints. ``paired``
+(``cerberus_tpu/train/opt.py:71,248``, ``run_train --paired``): the
+width-paired training forward (``NetDesc.forward_train``), which raises
+``ValueError`` at the first step where JAX ``net_forward`` raises (no
+basic-block ResNet, or W % 4 != 0).
 """
 from __future__ import annotations
 
@@ -75,20 +77,15 @@ def get_config(model_kwargs: Dict, loss_kwargs: Dict,
     }
 
 
-def check_supported(cfg: ModelConfig, mesh=None, paired: bool = False
-                    ) -> None:
+def check_supported(cfg: ModelConfig, mesh=None) -> None:
     """Raise ``NotImplementedError`` for what the port does not train,
     naming its ROADMAP queue 1 item: a single-controller mesh of more
     than one device (item 7 trains data-parallel on a process mesh
-    only) and the paired lowerings (item 9)."""
+    only)."""
     if mesh is not None:
         from ..parallel.mesh import check_trainable
 
         check_trainable(mesh)
-    if paired:
-        raise NotImplementedError(
-            "--paired is not ported (ROADMAP queue 1 item 9, the TPU-only "
-            "paired lowerings)")
 
 
 def build_trainer(config: Dict, train_loaders: Dict, valid_loaders: Dict,
@@ -101,7 +98,7 @@ def build_trainer(config: Dict, train_loaders: Dict, valid_loaders: Dict,
     infer_engine, net_holder).
 
     ``pretrained_params``: a (possibly partial) NetDesc state_dict laid
-    over the seeded fresh init; ``remat``, ``grad_accum`` and
+    over the seeded fresh init; ``remat``, ``grad_accum``, ``paired`` and
     ``compute_dtype`` (``torch.bfloat16``: autocast over f32 masters) go
     to ``make_train_step``. A ``resume_from`` entry in the phase's net
     config restores a train state (weights, Adam moments, update count)
@@ -109,7 +106,7 @@ def build_trainer(config: Dict, train_loaders: Dict, valid_loaders: Dict,
     phase = config["phase_list"][0]
     net_cfg = phase["run_info"]["net"]
     cfg = ModelConfig.from_kwargs(net_cfg["model_kwargs"])
-    check_supported(cfg, mesh, paired)
+    check_supported(cfg, mesh)
     if mesh is not None:
         device = mesh.local_device
         if mesh.rank != 0:
@@ -133,11 +130,12 @@ def build_trainer(config: Dict, train_loaders: Dict, valid_loaders: Dict,
 
         train_step = make_sharded_train_step(
             cfg, mesh, loss_kwargs, opt_kwargs, compute_dtype=dtype,
-            grad_accum=grad_accum, remat=remat, model=model)
+            grad_accum=grad_accum, remat=remat, model=model, paired=paired)
     else:
         train_step = make_train_step(cfg, loss_kwargs, opt_kwargs,
                                      compute_dtype=dtype, remat=remat,
-                                     grad_accum=grad_accum, model=model)
+                                     grad_accum=grad_accum, model=model,
+                                     paired=paired)
     resume_from = net_cfg.get("resume_from")
     if resume_from:
         train_step.load_jax_train_state(*load_train_state(resume_from))

@@ -181,15 +181,17 @@ def autocast(device: torch.device, compute_dtype):
 
 def multitask_loss(model: NetDesc, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig, loss_tables, keep=None,
-                   compute_dtype=torch.float32, remat=False, group=None):
-    """The training forward (``NetDesc.forward_train``, every active head)
-    and ``head_losses`` on a device batch -> (total, metrics). The input
-    takes the parameters' dtype (f32; f64 for a model in f64). ``group``:
-    the loss sums span its ranks (the forward's BN syncs under
-    ``layers.sync_batch_stats``, which the caller holds)."""
+                   compute_dtype=torch.float32, remat=False, group=None,
+                   paired: bool = False):
+    """The training forward (``NetDesc.forward_train``, every active head;
+    width-paired with ``paired``) and ``head_losses`` on a device batch ->
+    (total, metrics). The input takes the parameters' dtype (f32; f64 for
+    a model in f64). ``group``: the loss sums span its ranks (the
+    forward's BN syncs under ``layers.sync_batch_stats``, which the caller
+    holds)."""
     x = images_to_input(batch["img"], next(model.parameters()).dtype)
     with autocast(x.device, compute_dtype):
-        pred = model.forward_train(x, remat=remat, keep=keep)
+        pred = model.forward_train(x, remat=remat, keep=keep, paired=paired)
     return head_losses(pred, batch, cfg, loss_tables, group)
 
 
@@ -220,6 +222,9 @@ class TrainStep:
     ``CERBERUS_DEBUG`` set, every loss scalar is checked for NaN/Inf
     (``FloatingPointError`` naming it).
 
+    ``paired``: the width-paired training forward
+    (``NetDesc.forward_train``; JAX ``make_train_step(paired=True)``).
+
     ``group`` (a ``torch.distributed`` process group; the model on this
     rank's device): the data-parallel step. Each call takes the GLOBAL
     batch (and ``keep``) and must be made on every rank with the same
@@ -230,7 +235,8 @@ class TrainStep:
     def __init__(self, model: NetDesc, cfg: ModelConfig, loss_kwargs=None,
                  optimizer_kwargs=None, compute_dtype=torch.float32,
                  remat=False, grad_accum: int = 1,
-                 return_grads: bool = False, group=None):
+                 return_grads: bool = False, group=None,
+                 paired: bool = False):
         if grad_accum < 1:
             raise ValueError("grad_accum must be >= 1, got %d" % grad_accum)
         if remat not in REMAT_MODES:
@@ -240,6 +246,7 @@ class TrainStep:
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.remat = remat
+        self.paired = paired
         self.grad_accum = grad_accum
         self.return_grads = return_grads
         self.loss_tables = loss_weight_tables(loss_kwargs, cfg)
@@ -317,7 +324,7 @@ class TrainStep:
                 total, metrics = multitask_loss(
                     model, micro, self.cfg, self.loss_tables,
                     keep=micro_keep, compute_dtype=self.compute_dtype,
-                    remat=self.remat, group=self.group)
+                    remat=self.remat, group=self.group, paired=self.paired)
                 (total / world).backward()
             for key, value in metrics.items():
                 value = value.detach()
@@ -380,11 +387,12 @@ class TrainStep:
 def make_train_step(cfg: ModelConfig, loss_kwargs=None, optimizer_kwargs=None,
                     compute_dtype=torch.float32, remat=False,
                     grad_accum: int = 1, return_grads: bool = False, *,
-                    model: NetDesc) -> TrainStep:
+                    model: NetDesc, paired: bool = False) -> TrainStep:
     """A ``TrainStep`` on ``model`` (JAX ``make_train_step``; the model,
     its optimizer and the update count live in the step object)."""
     return TrainStep(model, cfg, loss_kwargs, optimizer_kwargs,
-                     compute_dtype, remat, grad_accum, return_grads)
+                     compute_dtype, remat, grad_accum, return_grads,
+                     paired=paired)
 
 
 def make_valid_step(model: NetDesc, compute_dtype=torch.float32):

@@ -196,13 +196,38 @@ Phases, each printing JSON lines:
      manager at batch 1, the union's ``.mat`` files equal to one
      process's; ``multi_gpu_seconds``.
 
+  13. paired (after ``forward_profile``; the JAX package's TPU lowerings,
+     off by default): ``paired_forward``: the forward check's ResNet-34 in
+     f32 with TF32 off, the paired towers and paired front
+     (``CERBERUS_PAIRED=1``'s forward) against the valid-region heads at
+     448->144 batch 10 and 1168->864 batch 2 (each head within 2e-5 of
+     its largest logit), the grouped bank against the full towers at
+     448->144 batch 10 (1e-3); ``paired_main_path`` / ``fused_main_path``:
+     the main path's images through managers bound with
+     ``CERBERUS_PAIRED=1`` and ``fuse_decoders=True``, launch counts reset
+     just before and read just after, the families against the plain
+     ones, the bf16 canvases and label maps beside the plain and
+     full-tower ones (printed), ``paired_dense_main_path`` the same at
+     1168->864; ``paired_ab``: device ms a batch of the plain, paired and
+     fused steps in three alternating turns, windowed (batch 10) and dense
+     (batch 8), TFLOP/s on the plain convolutions' FLOPs (print only);
+     ``paired_train``: the ResNet-34 448^2 batch-12 bf16 step paired and
+     unpaired in turns (ms, GiB), and resnet18 96^2 float64 paired on the
+     card against the CPU (1e-8 / 1e-6); ``paired_seconds``. Before
+     ``main_path``, ``batch_position_invariance`` also compares the moved
+     windows layer by layer (stem, encoder stages, ``conv_map``, one
+     tower's levels, its head) in bf16, bf16 with cuDNN deterministic and
+     f32 TF32-off deterministic, and names the first layer that differs.
+
 The second-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Without CUDA, or without the package beside this script, it exits 1 and
 prints no result. It imports nothing of JAX or cerberus_tpu; cv2 and
 PyYAML are imported only by the CLIs' host side (phases 6, 8, 9 and 10)
 and the readers phase. The ``kernels`` line carries each kernel's
-launches on every driven path, the DSF ones (``dsf_main_path_launches``,
+launches on every driven path, the paired ones
+(``paired_main_path_launches``, ``fused_main_path_launches``), the DSF
+ones (``dsf_main_path_launches``,
 ``dsf_tile_cli_launches``, ``dsf_wsi_cli_launches``) and the multi-GPU
 ones (``mesh_wsi_launches``, ``sharded_cc_launches``; ``watershed`` is 0
 there: the sharded paths flood with ``propagate_labels``) included.
@@ -617,12 +642,13 @@ def write_model(torch, path, synthetic_heads: bool):
 
 
 def make_manager(torch, path, synthetic_heads: bool, wsi: bool = False,
-                 geometry=(448, 144, 10)):
+                 geometry=(448, 144, 10), **extra):
     """``write_model``'s model loaded through the tile ``InferManager``
     (``geometry``: input, output, batch; 448->144 at batch 10 by default),
-    or with ``wsi`` the WSI one (batch 30, the WSI CLI's default). The
-    step is bound at the first call, so ``CERBERUS_VALID_REGION`` is read
-    then."""
+    or with ``wsi`` the WSI one (batch 30, the WSI CLI's default);
+    ``extra``: more constructor keywords (``fuse_decoders=True``). The
+    step is bound at the first call, so ``CERBERUS_VALID_REGION`` and
+    ``CERBERUS_PAIRED`` are read then."""
     from cerberus_tpu_torch.config import DEFAULT_TARGET_CODE
     from cerberus_tpu_torch.infer import tile, wsi as wsi_mod
 
@@ -633,7 +659,8 @@ def make_manager(torch, path, synthetic_heads: bool, wsi: bool = False,
             checkpoint_path=os.path.join(path, "weights.tar"),
             decoder_dict=dict(DEFAULT_TARGET_CODE), model_args=model_kwargs,
             device="cuda", batch_size=30 if wsi else geometry[2],
-            patch_input_shape=geometry[0], patch_output_shape=geometry[1])
+            patch_input_shape=geometry[0], patch_output_shape=geometry[1],
+            **extra)
     finally:
         shutil.rmtree(path, ignore_errors=True)
 
@@ -749,11 +776,65 @@ def valid_vs_full_deterministic(torch, model, hw: int, out: int,
               d == 0.0 for d in diff.values())})
 
 
+POSITION_DECODER = "Nuclei"  # the tower whose levels the probe reads
+
+
+def layer_outputs(torch, model, x, out_sz):
+    """The forward's (``infer/steps.head_outputs``) activations on NCHW
+    ``x``, read by forward hooks, in the order the forward makes them: the
+    stem convolution and its BN, each encoder stage, ``conv_map``, the
+    last BN of each level of the ``POSITION_DECODER`` tower and its INST
+    head's logits. Returns {name: tensor}."""
+    from cerberus_tpu_torch.infer.steps import head_outputs
+
+    bb = model.backbone
+    tower = model.decoder_head[POSITION_DECODER]
+    probes = [("stem_conv", bb.conv1), ("stem_bn", bb.bn1)]
+    probes += [("layer%d" % s, getattr(bb, "layer%d" % s))
+               for s in range(1, 5)]
+    probes += [("conv_map", model.conv_map)]
+    probes += [("tower_level%d" % i, blk.block[-1].bn)
+               for i, blk in enumerate(tower)]
+    probes += [("inst_head", model.output_head[POSITION_DECODER]["INST"])]
+    got = {}
+    hooks = [mod.register_forward_hook(
+        lambda _m, _i, out, name=name: got.__setitem__(name, out))
+        for name, mod in probes]
+    try:
+        head_outputs(model, x, out_sz)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return {name: got[name] for name, _ in probes}
+
+
+def position_effect(torch, model, wins, out_sz, half) -> dict:
+    """Windows ``half..n-1`` of ``wins[:n]`` against the same windows at
+    positions ``0..n-half-1`` of ``wins[half:half + n]`` (the step line's
+    comparison): each probed layer's largest difference and the first
+    layer that differs."""
+    n = len(wins) - half
+    x = wins.permute(0, 3, 1, 2).float() / 255.0
+    with torch.no_grad():
+        first = layer_outputs(torch, model, x[:n], out_sz)
+        moved = layer_outputs(torch, model, x[half:half + n], out_sz)
+    diff = {name: float((first[name][half:].float()
+                         - moved[name][:n - half].float()).abs().max())
+            for name in first}
+    differing = [name for name, d in diff.items() if d > 0]
+    return {"max_abs_diff": diff,
+            "first_differing": differing[0] if differing else None}
+
+
 def batch_position_invariance(torch, manager) -> None:
     """Print only: the bf16 step (448->144, the manager's batch) on the same
     windows twice, on a batch whose tail rows are zeros, and on windows
     moved to other places among other windows: which of these give the
-    same bits per window."""
+    same bits per window. Then the moved windows at their two batch
+    positions, layer by layer (``position_effect``): the encoder's stages
+    and one tower's levels in bf16 (autocast), in bf16 with cuDNN
+    deterministic, and in f32 with TF32 off and cuDNN deterministic, each
+    with the first layer that differs."""
     n = int(manager.batch_size)
     half = n // 2
     wins = torch.from_numpy(np.stack([
@@ -771,6 +852,22 @@ def batch_position_invariance(torch, manager) -> None:
     padded = step(wins[:half])
     moved = step(wins[half:n + half])
     diff = (first[half:] - moved[:n - half]).abs()
+    layers = {}
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        layers["bf16"] = position_effect(torch, manager.model, wins, 144,
+                                         half)
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            layers["bf16_deterministic"] = position_effect(
+                torch, manager.model, wins, 144, half)
+        with tf32_off(torch):
+            layers["f32_tf32_off_deterministic"] = position_effect(
+                torch, manager.model, wins, 144, half)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
     emit({"phase": "batch_position_invariance", "batch": n, "hw": 448,
           "out": 144, "same_batch_equal": bool(torch.equal(first, again)),
           "zero_padded_tail_equal": bool(torch.equal(first[:half],
@@ -778,7 +875,9 @@ def batch_position_invariance(torch, manager) -> None:
           "moved_equal": bool(diff.max() == 0),
           "moved_values_differing": float((diff > 0).float().mean()),
           "moved_max_abs": float(diff.max()),
-          "moved_max_abs_per_channel": diff.amax(dim=(0, 1, 2)).tolist()})
+          "moved_max_abs_per_channel": diff.amax(dim=(0, 1, 2)).tolist(),
+          "windows_moved": n - half, "shift": half,
+          "tower": POSITION_DECODER, "layers": layers})
 
 
 def phase_forward(torch, manager):
@@ -938,12 +1037,21 @@ def phase_main_path(torch, manager, full_manager):
     emit({"phase": "main_path_full_towers", "valid_region": False, **f_line,
           "tiles_per_s": f_line["windows_per_s"], **f_split})
 
+    emit({"phase": "valid_vs_full_bf16",
+          **canvas_diff(manager, valid_outs, full_outs)})
+    return launches
+
+
+def canvas_diff(manager, outs, ref_outs) -> dict:
+    """Two forwards' per-image (canvas, label maps) side by side: the
+    canvas's and the INST channels' largest difference, the share of TYPE
+    and Patch-Class ids that differ, and each task's foreground IoU."""
     from cerberus_tpu_torch.data.patching import make_channel_index_map
 
     idx_dict, _ = make_channel_index_map(manager.cfg.active_decoder_kwargs)
     diff = {"canvas_max_abs": [], "inst_max_abs": [],
             "argmax_differ_share": {}, "fg_iou": {}}
-    for (canvas_v, lab_v), (canvas_f, lab_f) in zip(valid_outs, full_outs):
+    for (canvas_v, lab_v), (canvas_f, lab_f) in zip(outs, ref_outs):
         delta = (canvas_v.float() - canvas_f.float()).abs()
         diff["canvas_max_abs"].append(float(delta.max()))
         diff["inst_max_abs"].append(max(
@@ -958,8 +1066,7 @@ def phase_main_path(torch, manager, full_manager):
             union = int((a | b).sum())
             diff["fg_iou"].setdefault(task, []).append(
                 int((a & b).sum()) / union if union else 1.0)
-    emit({"phase": "valid_vs_full_bf16", **diff})
-    return launches
+    return diff
 
 
 def phase_main_path_dense(torch, manager):
@@ -1062,6 +1169,257 @@ def phase_forward_profile(torch, managers, phase="forward_profile"):
         if not row["device_ms"]:
             raise AssertionError("profiler saw no device time for %s" % name)
     return paths
+
+
+PAIRED_HOLD = ((448, 144, 10), (1168, 864, 2))  # (a): in, out, batch
+PAIRED_TOL = 2e-5  # paired vs valid heads, of each head's max |logit|
+FUSED_TOL = 1e-3   # the bank vs the sequential full towers, scaled
+PAIRED_AB = {"windowed": (448, 144, 10), "dense": (1168, 864, 8)}
+PAIRED_AB_TURNS = 3
+PAIRED_TRAIN_TURNS = (False, True, True, False)  # unpaired / paired
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Environment variables set within the block, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def phase_paired_forward(torch, dev):
+    """(a) and (b), f32 with TF32 off, the forward check's ResNet-34
+    (randomised BN statistics): the paired towers and paired front
+    (``paired_head_outputs``) against the unpaired valid-region heads at
+    448->144 batch 10 and 1168->864 batch 2, each head within
+    ``PAIRED_TOL`` of its largest |logit| (the JAX package's bar); the
+    grouped bank (``fused_head_outputs``) against the sequential full
+    towers at 448->144 batch 10 within ``FUSED_TOL``."""
+    from cerberus_tpu_torch.infer.steps import pclass_cells
+    from cerberus_tpu_torch.models.fused_decoder import (
+        build_fused_decoder, fused_head_outputs)
+    from cerberus_tpu_torch.models.paired_decode import (
+        paired_head_outputs, supports_paired)
+    from cerberus_tpu_torch.models.paired_encoder import use_paired_front
+    from cerberus_tpu_torch.models.valid_decode import (
+        supports_valid_region, valid_head_outputs)
+
+    model, _ = random_model(torch, "resnet34", False)
+    model.to(dev)
+    holds = {}
+    with tf32_off(torch), torch.no_grad():
+        for in_sz, out_sz, batch in PAIRED_HOLD:
+            x = torch.from_numpy(np.random.default_rng(7).integers(
+                0, 256, (batch, in_sz, in_sz, 3)).astype(np.uint8)).to(
+                    dev).permute(0, 3, 1, 2).float() / 255.0
+            plan = supports_valid_region(model.cfg, in_sz, out_sz)
+            cells = pclass_cells(in_sz, out_sz)
+            ref = valid_head_outputs(model, x, plan, cells)
+            got = paired_head_outputs(model, x, plan, cells)
+            err = {h: float((got[h] - ref[h]).abs().max())
+                   / float(ref[h].abs().max()) for h in ref}
+            holds["%d_%d" % (in_sz, out_sz)] = {
+                "batch": batch, "supports_paired": supports_paired(
+                    plan, in_sz),
+                "paired_front": use_paired_front(
+                    model.cfg.encoder_backbone_name, in_sz, batch),
+                "rel_err": err, "tol": PAIRED_TOL,
+                "met": all(e < PAIRED_TOL for e in err.values())}
+            del x, ref, got
+        in_sz, out_sz, batch = PAIRED_HOLD[0]
+        x = torch.from_numpy(np.random.default_rng(8).integers(
+            0, 256, (batch, in_sz, in_sz, 3)).astype(np.uint8)).to(
+                dev).permute(0, 3, 1, 2).float() / 255.0
+        full = model(x)
+        fused = fused_head_outputs(model, *build_fused_decoder(model), x)
+        ferr = {h: rel_err(fused[h], full[h]) for h in full}
+    fused_line = {"batch": batch, "rel_err": ferr, "tol": FUSED_TOL,
+                  "met": all(e < FUSED_TOL for e in ferr.values())}
+    emit({"phase": "paired_forward", "compute": "f32, TF32 off",
+          "paired_vs_valid": holds, "fused_vs_full_towers": fused_line})
+    del model
+    torch.cuda.empty_cache()
+    if not (all(h["met"] and h["supports_paired"] for h in holds.values())
+            and fused_line["met"]):
+        raise AssertionError("paired_forward: off tolerance")
+
+
+def phase_paired_main_path(torch, model_dir, manager, full_manager,
+                           dense_manager):
+    """(c) The main path's three images through a manager bound under
+    ``CERBERUS_PAIRED=1`` and through one with ``fuse_decoders=True``
+    (bf16), launch counts reset just before and read just after each, the
+    kernel families against the plain families on their canvases; their
+    canvases and label maps beside the plain valid-region manager's and
+    the full towers' (the bank runs full towers), printed only, as
+    ``valid_vs_full_bf16``; then the same for ``CERBERUS_PAIRED=1`` at
+    1168->864 (``DENSE``) beside ``dense_manager``. Returns the 448->144
+    paths' launches."""
+    images = main_path_images()
+    _, valid_outs = split_times(torch, manager, images, plain=False)
+    _, full_outs = split_times(torch, full_manager, images, plain=False)
+    _, dense_outs = split_times(torch, dense_manager, images, plain=False)
+    launches = {}
+    for name, env, extra, ref_name, ref_outs in (
+            ("paired", {"CERBERUS_PAIRED": "1"}, {}, "valid", valid_outs),
+            ("fused", {}, {"fuse_decoders": True}, "full_towers",
+             full_outs),
+            ("paired_dense", {"CERBERUS_PAIRED": "1"}, {"geometry": DENSE},
+             "valid", dense_outs)):
+        with env_set(**env):
+            run_manager = make_manager(torch, model_dir, True, **extra)
+            _, seconds, ms, launches[name], instances = drive_images(
+                torch, run_manager, images)
+        split, outs = split_times(torch, run_manager, images, plain=True)
+        line = path_numbers(run_manager, images, seconds, ms, instances,
+                            launches[name])
+        emit({"phase": "%s_main_path" % name, **line,
+              "families_vs_plain": "byte_equal", **split,
+              "vs_%s_bf16" % ref_name: canvas_diff(run_manager, outs,
+                                                   ref_outs)})
+        del run_manager
+        torch.cuda.empty_cache()
+    launches.pop("paired_dense")
+    return launches
+
+
+def phase_paired_ab(torch, manager):
+    """(d) Print only: device ms a batch (``profile_step``, the
+    ``forward_profile`` method) of the plain valid-region step, the paired
+    step and the grouped bank, windowed (448->144, batch 10) and dense
+    (1168->864, batch 8), in ``PAIRED_AB_TURNS`` alternating turns
+    (plain, paired, fused, then reversed). TFLOP/s on the plain
+    convolutions' FLOPs (``utils/flops.py``: valid-region towers for plain
+    and paired, full towers for the bank), so the repacks' zero MACs
+    count as lost time."""
+    from cerberus_tpu_torch.infer.steps import make_infer_step
+    from cerberus_tpu_torch.utils.flops import forward_flops
+
+    model, cfg = manager.model, manager.cfg
+    arms = ("plain", "paired", "fused")
+    paths = {}
+    for geo, (in_sz, out_sz, batch) in PAIRED_AB.items():
+        imgs = torch.from_numpy(np.stack([
+            synthetic_image((in_sz, in_sz), 60 + i) for i in range(batch)
+        ])).to(manager.device)
+        steps = {}
+        for arm in arms:
+            with env_set(CERBERUS_PAIRED="1" if arm == "paired" else "0"):
+                steps[arm] = make_infer_step(
+                    model, cfg, out_sz, torch.bfloat16, torch.float16,
+                    fuse_decoders=arm == "fused")
+            steps[arm](imgs)  # warm-up: cuDNN plans
+        torch.cuda.synchronize()
+        device, wall, top = {a: [] for a in arms}, {a: [] for a in arms}, {}
+        for turn in range(PAIRED_AB_TURNS):
+            for arm in arms if turn % 2 == 0 else arms[::-1]:
+                w_ms, d_ms, top[arm] = profile_step(
+                    torch, lambda arm=arm: steps[arm](imgs))
+                device[arm].append(d_ms)
+                wall[arm].append(w_ms)
+        rows = {}
+        for arm in arms:
+            flops = forward_flops(in_sz, out_sz, arm != "fused", cfg,
+                                  batch)["flops"]
+            med = statistics.median(device[arm])
+            rows[arm] = {"device_ms": device[arm], "wall_ms": wall[arm],
+                         "device_ms_median": med, "gflop": flops / 1e9,
+                         "tflop_per_s_device": flops / (med * 1e-3) / 1e12,
+                         "top_ops": top[arm]}
+        plain = rows["plain"]["device_ms_median"]
+        paths[geo] = {"patch": [in_sz, out_sz], "batch": batch, **rows,
+                      "paired_over_plain": rows["paired"][
+                          "device_ms_median"] / plain,
+                      "fused_over_plain": rows["fused"][
+                          "device_ms_median"] / plain}
+        del steps, imgs
+        torch.cuda.empty_cache()
+    emit({"phase": "paired_ab", "compute": "bf16", "turns": PAIRED_AB_TURNS,
+          "paths": paths, "peak_bf16_tflop_per_s": 989})
+    for geo, row in paths.items():
+        if not all(row[a]["device_ms_median"] > 0 for a in arms):
+            raise AssertionError("paired_ab: no device time for %s" % geo)
+
+
+def phase_paired_train(torch, dev):
+    """(e) ``--paired`` training. ResNet-34, six heads, 448^2, batch 12,
+    bf16 (``train_step_runs``), unpaired and paired in turns
+    (``PAIRED_TRAIN_TURNS``): step ms, peak GiB, top operations. Then
+    resnet18 at 96^2, batch 4, float64: the paired step on the card
+    against the paired step on the CPU within ``train_parity``'s float64
+    tolerances."""
+    from cerberus_tpu_torch.config import ModelConfig
+    from cerberus_tpu_torch.models.net_desc import NetDesc, init_weights
+    from cerberus_tpu_torch.train.utils import tame_head_logits
+
+    helpers = train_helpers()
+    kwargs = helpers.model_kwargs("resnet34")
+    state = tame_head_logits(init_weights(
+        NetDesc(ModelConfig.from_kwargs(kwargs)),
+        torch.Generator().manual_seed(0)).state_dict())
+    turns = {"unpaired": [], "paired": []}
+    for paired in PAIRED_TRAIN_TURNS:
+        runs, _ = train_step_runs(torch, dev, kwargs, state,
+                                  (("bf16", True, False, 1),),
+                                  "backbone.bn1.running_var", paired=paired)
+        turns["paired" if paired else "unpaired"].append(runs["bf16"])
+    p_kwargs, p_state, batch, keep = helpers.parity_case()
+    card = helpers.step_on(dev, p_kwargs, p_state, batch, keep,
+                           dtype=torch.float64, paired=True)
+    cpu = helpers.step_on("cpu", p_kwargs, p_state, batch, keep,
+                          dtype=torch.float64, paired=True)
+    f64 = helpers.worst_errors(card, cpu)
+    ok = (all(f64[k] <= v for k, v in helpers.PARITY_F64_TOLS.items())
+          and f64["zero_grad"] <= 1)
+    summary = {name: {"step_ms": [r["step_ms"] for r in runs],
+                      "peak_gib": [r["peak_gib"] for r in runs],
+                      "images_per_s": [r["images_per_s"] for r in runs],
+                      "device_busy_share": [r["device_busy_share"]
+                                            for r in runs],
+                      "top_ops": runs[-1]["top_ops"]}
+               for name, runs in turns.items()}
+    emit({"phase": "paired_train", "model": "resnet34, six heads",
+          "hw": TRAIN_HW, "batch": TRAIN_BATCH, "compute": "bf16",
+          "turns": ["paired" if p else "unpaired"
+                    for p in PAIRED_TRAIN_TURNS], **summary,
+          "paired_over_unpaired": statistics.median(
+              summary["paired"]["step_ms"]) / statistics.median(
+                  summary["unpaired"]["step_ms"]),
+          "parity_f64": {"setting": "resnet18, 96^2, batch 4, card vs CPU",
+                         "errors": f64, "tolerances":
+                             helpers.PARITY_F64_TOLS, "ok": ok}})
+    if not ok:
+        raise AssertionError("paired_train: the card's float64 paired step "
+                             "disagrees with the CPU's")
+
+
+def phase_paired(torch, dev, model_dir, manager, full_manager, dense_manager):
+    """The width-paired and fused-bank phases, with their seconds.
+    Returns the launches of ``paired_main_path`` and ``fused_main_path``."""
+    seconds = {}
+    t0 = time.perf_counter()
+    phase_paired_forward(torch, dev)
+    seconds["paired_forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = phase_paired_main_path(torch, model_dir, manager,
+                                      full_manager, dense_manager)
+    seconds["paired_main_path"] = time.perf_counter() - t0
+    for name, fn in (("paired_ab", lambda: phase_paired_ab(torch, manager)),
+                     ("paired_train", lambda: phase_paired_train(torch,
+                                                                 dev))):
+        t0 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    emit({"phase": "paired_seconds", **seconds})
+    return launches
 
 
 def write_slide(slide_dir):
@@ -2518,7 +2876,8 @@ def phase_train_step(torch, dev):
     return runs
 
 
-def train_step_runs(torch, dev, kwargs, state, runs_spec, bn_key):
+def train_step_runs(torch, dev, kwargs, state, runs_spec, bn_key,
+                    paired=False):
     """Training of the model ``kwargs`` from ``state`` at 448^2, batch 12,
     on ``make_batch``'s synthetic batch, once per ``(name, bf16, remat,
     grad_accum)`` of ``runs_spec``. Per run: median step ms of 10 steps
@@ -2527,7 +2886,9 @@ def train_step_runs(torch, dev, kwargs, state, runs_spec, bn_key):
     step's device-busy share and top five device operations, and model
     TFLOP/s (3x the full-tower forward FLOPs of ``utils/flops.py``) as a
     share of the card's dense bf16 peak. Every loss must be finite and the
-    BN statistics ``bn_key`` must move. Returns (runs, step FLOPs)."""
+    BN statistics ``bn_key`` must move. ``paired``: the width-paired
+    training forward (its zero MACs not counted as work). Returns (runs,
+    step FLOPs)."""
     from cerberus_tpu_torch.config import ModelConfig
     from cerberus_tpu_torch.models.net_desc import NetDesc
     from cerberus_tpu_torch.train.steps import make_train_step
@@ -2547,7 +2908,7 @@ def train_step_runs(torch, dev, kwargs, state, runs_spec, bn_key):
         step = make_train_step(
             cfg, helpers.LOSS_KWARGS, {"lr": 1e-3},
             compute_dtype=torch.bfloat16 if bf16 else torch.float32,
-            remat=remat, grad_accum=accum, model=model)
+            remat=remat, grad_accum=accum, model=model, paired=paired)
         gen = torch.Generator(device=dev).manual_seed(1)
         stats0 = model.state_dict()[bn_key].clone()
         torch.cuda.synchronize()
@@ -3586,6 +3947,8 @@ def run() -> int:
     phase_forward_profile(torch, [("windowed_full", full_manager, False),
                                   ("windowed_valid", manager, True),
                                   ("dense_valid", dense_manager, True)])
+    paired_launches = phase_paired(torch, dev, model_dir, manager,
+                                   full_manager, dense_manager)
     del full_manager
     torch.cuda.empty_cache()
     serve_launches = phase_serving(torch, {"windowed": manager,
@@ -3621,6 +3984,8 @@ def run() -> int:
                             legacy_run["launches"][name],
                         **{"%s_launches" % path: counts[name]
                            for path, counts in serve_launches.items()},
+                        **{"%s_main_path_launches" % path: counts[name]
+                           for path, counts in paired_launches.items()},
                         **{"%s_launches" % path: counts[name]
                            for path, counts in dsf_launches.items()},
                         **{"%s_launches" % path: counts.get(name, 0)

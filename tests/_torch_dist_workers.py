@@ -99,9 +99,10 @@ def wsi_shard(rank, world, slides, root, model_kwargs, target_code):
 
 def dp_train_step(rank, world, kwargs, state, batch, keep, dtype_name,
                   grad_accum, loss_kwargs, opt_kwargs, extra_batches=(),
-                  remat=False):
+                  remat=False, paired=False):
     """One data-parallel step (``make_sharded_train_step`` on a CPU
-    process mesh) from ``state`` on the GLOBAL ``batch``: (metrics,
+    process mesh; width-paired with ``paired``) from ``state`` on the
+    GLOBAL ``batch``: (metrics,
     gradients, state dict after, Adam state as numpy). Each of
     ``extra_batches`` must then raise ``ValueError`` (returned as its
     message)."""
@@ -123,7 +124,8 @@ def dp_train_step(rank, world, kwargs, state, batch, keep, dtype_name,
     mesh = make_mesh([torch.device("cpu")] * world, group="world")
     step = make_sharded_train_step(cfg, mesh, loss_kwargs, opt_kwargs,
                                    grad_accum=grad_accum, remat=remat,
-                                   return_grads=True, model=model)
+                                   return_grads=True, model=model,
+                                   paired=paired)
     metrics, grads = step(batch, keep=keep)
     errors = []
     for bad in extra_batches:

@@ -416,6 +416,40 @@ def _tf32_restore(saved):
      torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+def test_paired_and_fused_forwards_on_card(dev):
+    """448->144, batch 2, f32 with TF32 off: the paired towers and paired
+    front (``CERBERUS_PAIRED=1``'s forward) within 2e-5 of each head's
+    largest logit of the unpaired valid-region heads, and the grouped bank
+    within 1e-3 of the sequential full towers."""
+    from cerberus_tpu_torch.models.fused_decoder import (
+        build_fused_decoder, fused_head_outputs)
+    from cerberus_tpu_torch.models.paired_decode import paired_head_outputs
+    from cerberus_tpu_torch.models.valid_decode import (
+        supports_valid_region, valid_head_outputs)
+
+    model = _full_width_model(dev)
+    x = torch.rand((2, 3, 448, 448), generator=torch.Generator().manual_seed(
+        3)).to(dev)
+    plan = supports_valid_region(model.cfg, 448, 144)
+    saved = _tf32_off()
+    try:
+        with torch.no_grad():
+            valid = valid_head_outputs(model, x, plan)
+            paired = paired_head_outputs(model, x, plan)
+            full = model(x)
+            fused = fused_head_outputs(model, *build_fused_decoder(model), x)
+    finally:
+        _tf32_restore(saved)
+    for head, ref in valid.items():
+        rel = float((paired[head] - ref).abs().max()) / float(
+            ref.abs().max())
+        assert rel < 2e-5, (head, rel)
+    for head, ref in full.items():
+        rel = float((fused[head] - ref).abs().max()) / max(
+            1.0, float(ref.abs().max()))
+        assert rel < 1e-3, (head, rel)
+
+
 def test_train_step_on_card_matches_cpu(dev):
     """resnet18, six heads, 96^2, batch 4, the dropout mask passed, TF32
     off: float64 equal to the CPU's within 1e-8 (loss, BN statistics) and

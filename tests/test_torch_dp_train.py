@@ -82,9 +82,10 @@ def _case(seed=0):
     return kwargs, state, batch, keep
 
 
-def _single(kwargs, state, batch, keep, grad_accum, threads):
-    """The single-device float64 step on the global batch, in the layout
-    of ``_torch_dist_workers.dp_train_step``."""
+def _single(kwargs, state, batch, keep, grad_accum, threads, paired=False):
+    """The single-device float64 step on the global batch (width-paired
+    with ``paired``), in the layout of
+    ``_torch_dist_workers.dp_train_step``."""
     saved = torch.get_num_threads()
     torch.set_num_threads(threads)
     try:
@@ -94,7 +95,8 @@ def _single(kwargs, state, batch, keep, grad_accum, threads):
         model.to(torch.float64)
         step = steps.make_train_step(cfg, LOSS_KWARGS_CLASS_WEIGHTS,
                                      {"lr": LR}, grad_accum=grad_accum,
-                                     return_grads=True, model=model)
+                                     return_grads=True, model=model,
+                                     paired=paired)
         metrics, grads = step(batch, keep=keep)
         opt_state = {step.param_names[i]: {k: v.numpy().copy()
                                            for k, v in st.items()
@@ -139,11 +141,12 @@ def _assert_f64_parity(got, ref, ref_other):
             assert (err <= TOL).all(), key
 
 
-def _dp_f64(case, grad_accum, extra=(), remat=False):
+def _dp_f64(case, grad_accum, extra=(), remat=False, paired=False):
     kwargs, state, batch, keep = case
     return run_ranks(W.dp_train_step, 2, (
         kwargs, state, batch, keep, "float64", grad_accum,
-        LOSS_KWARGS_CLASS_WEIGHTS, {"lr": LR}, extra, remat), timeout_s=300)
+        LOSS_KWARGS_CLASS_WEIGHTS, {"lr": LR}, extra, remat, paired),
+        timeout_s=300)
 
 
 def test_dp_step_float64_equals_single_device_step():

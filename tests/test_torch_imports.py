@@ -2,7 +2,9 @@
 neither JAX, flax, optax, cv2, PyYAML, joblib, sklearn, msgpack, matplotlib
 nor anything of cerberus_tpu; the source imports none of them at top level
 (the training path no scipy either); kernel launches and the native patch
-gather have no fallback; entry points default to the card."""
+gather have no fallback; entry points default to the card. The four
+TPU lowerings (``models/{paired_decode,paired_encoder,paired_tower,
+fused_decoder}.py``) are probed and scanned like the rest."""
 import os
 import pathlib
 import re
@@ -56,6 +58,9 @@ print("TRAIN", sorted(m for m in sys.modules if m.startswith(
 print("PARALLEL", sorted(m for m in sys.modules if m.startswith(
     ("cerberus_tpu_torch.parallel", "cerberus_tpu_torch.ops.sharded_cc"))))
 print("DIST", "torch.distributed.nn" in sys.modules)
+print("LOWER", sorted(m for m in sys.modules if m in (
+    "cerberus_tpu_torch.models." + name for name in (
+        "paired_decode", "paired_encoder", "paired_tower", "fused_decoder"))))
 """
 
 
@@ -85,6 +90,7 @@ def test_import_all_modules_loads_no_jax_cv2_yaml_or_reference():
     # torch.distributed's autograd collectives load inside the functions
     # that all-reduce
     assert lines["DIST"] == "False"
+    assert len(eval(lines["LOWER"])) == len(_LOWERING_MODULES)
     assert {"cerberus_tpu_torch.run_train"} | {
         "cerberus_tpu_torch.train." + name for name in _TRAIN_MODULES} | {
         "cerberus_tpu_torch.data." + name
@@ -98,6 +104,10 @@ def _sources():
 _SERVE_MODULES = ("predictor.py", "models/native_ckpt.py",
                   "models/convert.py", "infer/patch.py", "infer/fused_tile.py",
                   "run_eval_patch.py", "convert_checkpoint.py")
+
+
+_LOWERING_MODULES = ("models/paired_decode.py", "models/paired_encoder.py",
+                     "models/paired_tower.py", "models/fused_decoder.py")
 
 
 _TRAIN_MODULES = ("callbacks", "convergence", "engine", "losses", "metrics",
@@ -126,6 +136,18 @@ def test_serving_modules_import_no_host_library_at_module_level():
     top = re.compile(r"^(import|from)\s+(joblib|cv2|sklearn|msgpack|yaml)"
                      r"(\.|\s|$)")
     offenders = ["%s:%d" % (name, no) for name in _SERVE_MODULES
+                 for no, line in enumerate(
+                     (PKG / name).read_text().splitlines(), 1)
+                 if top.match(line)]
+    assert offenders == []
+
+
+def test_lowering_modules_import_no_jax_reference_or_host_library():
+    """The width-paired and fused-bank lowerings import neither JAX nor
+    the JAX package, and no cv2 or PyYAML at module level."""
+    top = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|cerberus_tpu|"
+                     r"cv2|yaml)(\.|\s|$)")
+    offenders = ["%s:%d" % (name, no) for name in _LOWERING_MODULES
                  for no, line in enumerate(
                      (PKG / name).read_text().splitlines(), 1)
                  if top.match(line)]

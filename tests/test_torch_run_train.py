@@ -103,8 +103,9 @@ def test_resume_restores_count_lr_and_moments(tmp_path, settings):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--paired"], "item 9"),
-    (["--gpu=0,1"], "item 7"),
+    # ``--paired`` trains since the paired lowerings were ported
+    # (tests/test_torch_paired_train.py); the case keeps its id
+    pytest.param(["--gpu=0,1"], "item 7", id="argv1-item 7"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, settings, argv, item):
     with pytest.raises(NotImplementedError, match=item):

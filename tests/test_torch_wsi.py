@@ -393,9 +393,16 @@ def test_stub_forward_dense_ratio_dat_matches_jax(slide, tmp_path,
 
 def test_stub_forward_masked_dat_matches_jax(slide, tmp_path, monkeypatch):
     """A tissue mask that leaves the right and bottom of the slide empty:
-    grid tiles and boundary strips with no patch and no tissue are skipped
-    (the tissue test runs once, for the tiles that ask), and the port
-    equals both JAX engines."""
+    grid tiles and boundary strips that no patch output reaches and that
+    hold no tissue are skipped (the tissue test runs once, for the tiles
+    that ask), and the port equals both JAX engines but in one band. The
+    windows with outputs at y in [240, 288) reach tissue (y < 248), so they
+    run, and they reach into the horizontal strips over y = 288 (y in
+    [256, 320)), where no top-left lies and the mask holds no tissue: the
+    port post-processes those strips and keeps their nuclei, the JAX
+    package skips them (ROADMAP section 3; ``tests/test_torch_wsi_boundary
+    .py``). Nuclei centred above y = 256 and every other payload are
+    equal; in the band the port has more nuclei."""
     import cv2
 
     mask = np.zeros((100, 126), np.uint8)
@@ -439,15 +446,26 @@ def test_stub_forward_masked_dat_matches_jax(slide, tmp_path, monkeypatch):
     counting(port_wsi)
     dat, pclass = run(port, "port")
     # placement, one test for the grid tiles without patches, one for the
-    # boundary strips without a patch top-left (all tiles of all sets)
+    # tiles of the nuclei pass that no patch output reaches (all sets)
     assert [name.split(".")[-1] for name, _ in calls] == [
         "wsi", "resident_wsi", "wsi"], calls
     assert 0 < len(dat["Nuclei"]) and all(
         v["centroid"][0] < 260 and v["centroid"][1] < 300
         for v in dat["Nuclei"].values())
+    band = 256
+
+    def nuclei(d, above):
+        return {_sig(v) for v in d["Nuclei"].values()
+                if (v["centroid"][1] < band) == above}
+
     for resident in (True, False):
         ref_dat, ref_pclass = run(jax_engine(resident), "jax%d" % resident)
-        assert _payload(dat) == _payload(ref_dat), resident
+        got, want = _payload(dat), _payload(ref_dat)
+        assert {k: v for k, v in got.items() if k != "Nuclei"} == \
+            {k: v for k, v in want.items() if k != "Nuclei"}, resident
+        assert nuclei(dat, True) == nuclei(ref_dat, True), resident
+        assert len(nuclei(dat, False)) > len(nuclei(ref_dat, False)), \
+            resident
         np.testing.assert_array_equal(pclass, ref_pclass)
 
 

@@ -45,10 +45,18 @@ is filling, and would read the canvas with no ordering against it.)
 A tile with more than ``_U16_LIMIT`` instances cannot ride the uint16
 download; it is deferred, with the tiles a resumed run already landed, to
 the caller's disk-canvas path.
+
+The main thread's waits on the host threads run under ``trace_span``s
+(``wsi/read_wait`` on the row reader, ``wsi/land_wait`` on the disk
+canvas, ``wsi/records_wait`` on ``on_tile``), summed into the caller's
+``totals`` under the labels of ``WAIT_LABELS`` with the reader thread's
+own seconds (timed there with the clock alone: a profiler span opened on
+a host thread does not show in the trace).
 """
 from __future__ import annotations
 
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -57,10 +65,16 @@ import torch
 
 from ..ops.device_postproc import KERNELS, Impl
 from ..ops.gpu_postproc import GPU_POSTPROC_FUNC_DICT, compact_present_ids
+from ..utils.profiling import trace_span
 from ..wsi.coords import filter_coordinates
 from .tile import gather_windows
 
 _U16_LIMIT = 65535
+# a slide's totals: the reader thread's seconds reading, the main thread's
+# waits on it, and its waits on the canvas landing and the tile records
+READ, READ_WAIT, HOST_WAIT = ("Resident Read Time", "Resident Read Wait Time",
+                              "Resident Host Wait Time")
+WAIT_LABELS = (READ, READ_WAIT, HOST_WAIT)
 
 
 def _pad512(n: int) -> int:
@@ -169,11 +183,15 @@ class ResidentWSIProcessor:
 
     def run(self, reader, resolution, patch_inputs, patch_outputs, set0,
             wsi_mask, wsi_proc_shape_xy, done_tiles, save_progress, canvas,
-            on_tile: Callable) -> List[int]:
+            on_tile: Callable, totals: Optional[dict] = None) -> List[int]:
         """Process every set-0 grid tile. ``on_tile(inst_map uint16,
         type_map float32 or None, bounds, flags, tile_idx)`` runs on a host
         thread for each tile that had patches. Returns the deferred tile
-        indices (landed by an earlier run, or past ``_U16_LIMIT``)."""
+        indices (landed by an earlier run, or past ``_U16_LIMIT``). The
+        seconds of ``WAIT_LABELS`` are added to ``totals``."""
+        totals = {} if totals is None else totals
+        for label in WAIT_LABELS:
+            totals.setdefault(label, 0.0)
         set_bounds, set_flags = set0
         deferred: List[int] = []
         deferred_lock = threading.Lock()
@@ -254,7 +272,14 @@ class ResidentWSIProcessor:
         def read_row_input(y_top, align_h):
             rb = (-m_in, y_top - m_in, aw_slide + m_in,
                   y_top + align_h + m_in)
-            return np.ascontiguousarray(reader.read_bounds(rb, **resolution))
+            t0 = time.perf_counter()
+            region = np.ascontiguousarray(reader.read_bounds(rb,
+                                                             **resolution))
+            totals[READ] += time.perf_counter() - t0  # one reader thread
+            return region
+
+        def wait_span(name, label):
+            return trace_span(name, label=label, totals=totals)
 
         batch_size = max(int(self.manager.batch_size), 1)
         read_pool = ThreadPoolExecutor(max_workers=1)   # row input reads
@@ -269,7 +294,8 @@ class ResidentWSIProcessor:
                                         *geoms[row_keys[0]][1:3])
             for ri, key in enumerate(row_keys):
                 tiles = rows[key]
-                region = rfut.result()
+                with wait_span("wsi/read_wait", READ_WAIT):
+                    region = rfut.result()
                 if ri + 1 < len(row_keys):
                     rfut = read_pool.submit(read_row_input,
                                             *geoms[row_keys[ri + 1]][1:3])
@@ -278,9 +304,10 @@ class ResidentWSIProcessor:
                 hp = self._padded(h_row)
 
                 # backpressure: at most two rows' downloads in flight
-                while len(row_land_futs) > 1:
-                    for fut in row_land_futs.pop(0):
-                        fut.result()
+                with wait_span("wsi/land_wait", HOST_WAIT):
+                    while len(row_land_futs) > 1:
+                        for fut in row_land_futs.pop(0):
+                            fut.result()
 
                 dev = torch.zeros((max(off + hp, align_h), w_row, self.n_ch),
                                   dtype=torch.float16, device=device)
@@ -326,13 +353,16 @@ class ResidentWSIProcessor:
                 del dev
                 while host_futs and host_futs[0].done():
                     host_futs.pop(0).result()
-                while len(host_futs) > 8:
-                    host_futs.pop(0).result()
-            for futs in row_land_futs:
-                for fut in futs:
+                with wait_span("wsi/records_wait", HOST_WAIT):
+                    while len(host_futs) > 8:
+                        host_futs.pop(0).result()
+            with wait_span("wsi/land_wait", HOST_WAIT):
+                for futs in row_land_futs:
+                    for fut in futs:
+                        fut.result()
+            with wait_span("wsi/records_wait", HOST_WAIT):
+                for fut in host_futs:
                     fut.result()
-            for fut in host_futs:
-                fut.result()
         finally:
             read_pool.shutdown(wait=True)
             land_pool.shutdown(wait=True)

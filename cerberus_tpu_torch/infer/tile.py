@@ -32,6 +32,11 @@ file's canvas is stitched on the card from its own slice of the outputs.
 gives the per-image batches.
 ``tile_backend="fused"`` runs ``infer/fused_tile.run_fused_tile`` per file.
 
+A job's phases run under the ``trace_span`` names of ``TILE_SPANS``, all
+on the main thread and none held open across the cache's ``yield``; their
+seconds are summed over the job and logged once at its end, one line a
+phase under the table's label.
+
 Kept reference quirks: lumen instances survive only inside glands, and
 lumen instances are typed against the gland type map (the previous task's
 upscaled type map).
@@ -54,6 +59,7 @@ from ..ops.gpu_postproc import GPU_POSTPROC_FUNC_DICT
 from ..ops.postproc import POSTPROC_FUNC_DICT, get_inst_info_dict
 from ..ops.stitch import stitch_canvas
 from ..utils import log_info, mkdir, recur_find_ext
+from ..utils.profiling import trace_span
 from .manager import InferManager as BaseInferManager
 
 # "gpu": families on the card ("tpu" is accepted as an alias); "cpu": the
@@ -63,6 +69,19 @@ POSTPROC_BACKENDS = ("gpu", "tpu", "cpu")
 TILE_BACKENDS = ("host", "fused")
 # files are cached until more than this many windows are (JAX tile.py:213)
 CACHE_WINDOWS = 256
+# a job's phases: trace name -> the label of its total in the job's log
+TILE_SPANS = {"tile/read": "Tile Read Time",
+              "tile/prepare": "Tile Prepare Time",
+              "tile/forward": "Tile Forward Time",
+              "tile/stitch": "Tile Stitch Time",
+              "tile/postproc": "Tile Postproc Time",
+              "tile/instance_info": "Tile Instance Info Time",
+              "tile/write": "Tile Write Time"}
+
+
+def _span(name: str, totals: dict):
+    """``trace_span`` of the job phase ``name``, summed into ``totals``."""
+    return trace_span(name, label=TILE_SPANS[name], totals=totals)
 
 
 def window_index(tl_list, size: int, device) -> tuple:
@@ -227,7 +246,8 @@ class InferManager(BaseInferManager):
         return canvas[src_pos[0]:src_pos[0] + src_hw[0],
                       src_pos[1]:src_pos[1] + src_hw[1]]
 
-    def cached_canvases(self, items: Iterable[Tuple[object, np.ndarray]]
+    def cached_canvases(self, items: Iterable[Tuple[object, np.ndarray]],
+                        totals: dict = None
                         ) -> Iterator[Tuple[object, np.ndarray,
                                             torch.Tensor]]:
         """The cross-file batch cache over ``items``, (key, RGB uint8
@@ -239,7 +259,10 @@ class InferManager(BaseInferManager):
         fixed-size batches, each gathered on the card from the padded
         images it spans (the JAX ``_run_cached`` job order). Only the
         cache's last batch is zero-padded. The outputs stay in the step's
-        dtype (f16 on the card) until each image's canvas is stitched."""
+        dtype (f16 on the card) until each image's canvas is stitched.
+        The seconds of its ``tile/prepare``, ``tile/forward`` and
+        ``tile/stitch`` spans are added to ``totals``."""
+        totals = {} if totals is None else totals
         in_shape = int(self.patch_input_shape)
         batch_size = int(self.batch_size)
         items = iter(items)
@@ -247,14 +270,16 @@ class InferManager(BaseInferManager):
             cache: List[tuple] = []
             n_windows = 0
             for key, img in items:
-                padded, patch_info, src_pos = prepare_patching(
-                    img, in_shape, int(self.patch_output_shape),
-                    self.patch_output_overlap)
-                dev_img = torch.from_numpy(np.ascontiguousarray(padded)).to(
-                    self.device)
-                # the input top-lefts, uploaded once: no copy in the loop
-                in_tl = torch.from_numpy(
-                    patch_info[:, 0, 0].astype(np.int64)).to(self.device)
+                with _span("tile/prepare", totals):
+                    padded, patch_info, src_pos = prepare_patching(
+                        img, in_shape, int(self.patch_output_shape),
+                        self.patch_output_overlap)
+                    dev_img = torch.from_numpy(
+                        np.ascontiguousarray(padded)).to(self.device)
+                    # the input top-lefts, uploaded once: no copy in the
+                    # loop
+                    in_tl = torch.from_numpy(
+                        patch_info[:, 0, 0].astype(np.int64)).to(self.device)
                 cache.append((key, img, dev_img, in_tl, patch_info, src_pos))
                 n_windows += len(patch_info)
                 if n_windows > CACHE_WINDOWS:
@@ -263,25 +288,29 @@ class InferManager(BaseInferManager):
                 return
             bounds = np.cumsum([0] + [len(c[4]) for c in cache])
             outputs: List[list] = [[] for _ in cache]
-            for start in range(0, n_windows, batch_size):
-                end = min(start + batch_size, n_windows)
-                spans = [(f, max(start, bounds[f]) - bounds[f],
-                          min(end, bounds[f + 1]) - bounds[f])
-                         for f in range(len(cache))
-                         if bounds[f] < end and start < bounds[f + 1]]
-                parts = [gather_windows(cache[f][2], cache[f][3][lo:hi],
-                                        in_shape) for f, lo, hi in spans]
-                out = self.step_padded(
-                    parts[0] if len(parts) == 1 else torch.cat(parts))
-                offset = 0
-                for f, lo, hi in spans:
-                    outputs[f].append(out[offset:offset + hi - lo])
-                    offset += hi - lo
+            with _span("tile/forward", totals):
+                for start in range(0, n_windows, batch_size):
+                    end = min(start + batch_size, n_windows)
+                    spans = [(f, max(start, bounds[f]) - bounds[f],
+                              min(end, bounds[f + 1]) - bounds[f])
+                             for f in range(len(cache))
+                             if bounds[f] < end and start < bounds[f + 1]]
+                    parts = [gather_windows(cache[f][2], cache[f][3][lo:hi],
+                                            in_shape) for f, lo, hi in spans]
+                    out = self.step_padded(
+                        parts[0] if len(parts) == 1 else torch.cat(parts))
+                    offset = 0
+                    for f, lo, hi in spans:
+                        outputs[f].append(out[offset:offset + hi - lo])
+                        offset += hi - lo
             for f, (key, img, dev_img, _, patch_info, src_pos) in enumerate(
                     cache):
-                canvas = self._stitch(torch.cat(outputs[f]), patch_info,
-                                      dev_img.shape[:2], src_pos,
-                                      img.shape[:2])
+                # the span closes before the yield: the consumer's phases
+                # are not nested in it
+                with _span("tile/stitch", totals):
+                    canvas = self._stitch(torch.cat(outputs[f]), patch_info,
+                                          dev_img.shape[:2], src_pos,
+                                          img.shape[:2])
                 outputs[f] = None
                 yield key, img, canvas
 
@@ -329,17 +358,36 @@ class InferManager(BaseInferManager):
         file_path_list = self._files_to_do()
         assert len(file_path_list) > 0, "Not Detected Any Files From Path"
 
+        totals: dict = {}  # the job's seconds per phase label
+
         def read(file_path):
-            img = cv2.cvtColor(cv2.imread(file_path), cv2.COLOR_BGR2RGB)
+            with _span("tile/read", totals):
+                img = cv2.cvtColor(cv2.imread(file_path), cv2.COLOR_BGR2RGB)
             return pathlib.Path(file_path).stem, img
 
-        if tile_backend == "fused":
+        def fused(items):
             from .fused_tile import run_fused_tile
 
-            canvases = ((name, img, run_fused_tile(self, img))
-                        for name, img in map(read, file_path_list))
+            for name, img in items:
+                with _span("tile/forward", totals):
+                    canvas = run_fused_tile(self, img)
+                yield name, img, canvas
+
+        if tile_backend == "fused":
+            canvases = fused(map(read, file_path_list))
         else:
-            canvases = self.cached_canvases(map(read, file_path_list))
+            canvases = self.cached_canvases(map(read, file_path_list),
+                                            totals)
+
+        def finish(name, img, inst_maps, type_maps, pclass_map, info=None):
+            if info is None:
+                with _span("tile/instance_info", totals):
+                    info = instance_info(inst_maps, type_maps,
+                                         self.postproc_list)
+            with _span("tile/write", totals):
+                save_results(self.output_dir, name, img, inst_maps, info,
+                             type_maps, pclass_map, viz_info)
+            log_info("Done Assembling %s" % name)
 
         pool = None
         if backend == "cpu" and int(getattr(self, "nr_post_proc_workers", 0)
@@ -350,27 +398,24 @@ class InferManager(BaseInferManager):
         try:
             futures = {}
             for name, img, canvas in canvases:
-                if backend != "cpu":
-                    inst_maps, type_maps, pclass_map = post_process_canvas(
-                        canvas, self.decoder_dict, self.postproc_list,
-                        self.cfg.active_decoder_kwargs)
-                    info = instance_info(inst_maps, type_maps,
-                                         self.postproc_list)
-                    save_results(self.output_dir, name, img, inst_maps, info,
-                                 type_maps, pclass_map, viz_info)
-                    log_info("Done Assembling %s" % name)
-                    continue
-                # one copy of the stitched canvas to the host per image
-                args = (canvas.cpu().numpy(), self.decoder_dict,
-                        self.postproc_list, self.cfg.active_decoder_kwargs)
-                if pool is None:
-                    save_results(self.output_dir, name, img,
-                                 *_host_postproc_and_info(*args),
-                                 viz_info)
-                    log_info("Done Assembling %s" % name)
-                else:
-                    futures[pool.submit(_host_postproc_and_info, *args)] = \
-                        (name, img)
+                with _span("tile/postproc", totals):
+                    if backend != "cpu":
+                        maps = post_process_canvas(
+                            canvas, self.decoder_dict, self.postproc_list,
+                            self.cfg.active_decoder_kwargs)
+                    else:
+                        # one copy of the stitched canvas to the host per
+                        # image
+                        args = (canvas.cpu().numpy(), self.decoder_dict,
+                                self.postproc_list,
+                                self.cfg.active_decoder_kwargs)
+                        if pool is None:
+                            maps = post_process_host(*args)
+                        else:
+                            futures[pool.submit(_host_postproc_and_info,
+                                                *args)] = (name, img)
+                            continue
+                finish(name, img, *maps)
             # as the JAX engine: a failed worker is logged and its image
             # left without outputs; the others are written
             for fut in as_completed(futures):
@@ -378,9 +423,11 @@ class InferManager(BaseInferManager):
                 if fut.exception() is not None:
                     log_info("Postproc worker failed: %r" % fut.exception())
                     continue
-                save_results(self.output_dir, name, img,
-                             *fut.result(), viz_info)
-                log_info("Done Assembling %s" % name)
+                inst_maps, info, type_maps, pclass_map = fut.result()
+                finish(name, img, inst_maps, type_maps, pclass_map, info)
         finally:
             if pool is not None:
                 pool.shutdown()
+        for label in TILE_SPANS.values():
+            if label in totals:
+                log_info("%s: %.4f" % (label, totals[label]))

@@ -28,6 +28,15 @@ wall-clock spans in the per-slide log:
     ``post_process`` in the legacy loop, or the oracle families (``cpu``);
   * the ``.dat`` payload, a plain pickle (``joblib.load`` reads it).
 
+Each phase runs under one ``trace_span`` (``wsi/placement``,
+``wsi/inference``, ``wsi/nuclei_sets``, ``wsi/tissue_map``,
+``wsi/gland_lumen``) that logs its ``<label>: <seconds>`` line; inside,
+the main thread's waits and host work have spans of their own (the
+resident loop's ``wsi/read_wait``, ``wsi/land_wait``,
+``wsi/records_wait``; per tissue region ``wsi/region_wait`` on the
+prefetch and ``wsi/region_info`` for the lumen gating and the instance
+records), summed over the slide and logged once.
+
 Device work is enqueued by the calling thread only; host threads do the
 disk reads, resizes, contours and dedup. The device half of each step
 (``boundary_tile_labels``, ``region_instance_map``'s device part) needs
@@ -90,6 +99,9 @@ POSTPROC_BACKENDS = ("gpu", "tpu", "cpu")
 # host batches between the read thread and the card, and batch outputs
 # between the card and the canvas writer, in the legacy loop
 _LEGACY_BUFFERS = 4
+# the gland/lumen phase's totals over a slide's tissue regions
+REGION_WAIT = "Gland & Lumen Region Wait Time"
+REGION_INFO = "Gland & Lumen Region Info Time"
 
 
 def _info_to_wsi_format(inst_info_dict, offset_xy):
@@ -519,128 +531,133 @@ class InferManager(BaseInferManager):
                             wsi_basename, output_dir):
         logger = self.logger
 
-        start = time.perf_counter()
-        resolution = ioconfig.highest_input_resolution
-        reader = open_wsi(wsi_path)
-        wsi_proc_shape_xy = reader.slide_dimensions(**resolution)  # (w, h)
-        wsi_proc_shape = wsi_proc_shape_xy[::-1]  # YX
-        wsi_base_mpp = reader.info.mpp
-        wsi_base_shape = np.array(reader.info.slide_dimensions)[::-1]  # YX
+        with trace_span("wsi/placement", logger,
+                        label="Preparing Input Output Placement"):
+            resolution = ioconfig.highest_input_resolution
+            reader = open_wsi(wsi_path)
+            wsi_proc_shape_xy = reader.slide_dimensions(**resolution)  # (w, h)
+            wsi_proc_shape = wsi_proc_shape_xy[::-1]  # YX
+            wsi_base_mpp = reader.info.mpp
+            wsi_base_shape = np.array(reader.info.slide_dimensions)[::-1]  # YX
 
-        wsi_mask = self._tissue_mask(reader, mask_path, wsi_proc_shape,
-                                     resolution)
-        mask_downsample_ratio = wsi_mask.shape[0] / wsi_proc_shape[0]
+            wsi_mask = self._tissue_mask(reader, mask_path, wsi_proc_shape,
+                                         resolution)
+            mask_downsample_ratio = wsi_mask.shape[0] / wsi_proc_shape[0]
 
-        if getattr(self, "save_mask", False):
-            import cv2
+            if getattr(self, "save_mask", False):
+                import cv2
 
-            cv2.imwrite(f"{output_dir}/mask/{wsi_basename}.png", wsi_mask * 255)
-        if getattr(self, "save_thumb", False):
-            import cv2
+                cv2.imwrite(f"{output_dir}/mask/{wsi_basename}.png",
+                            wsi_mask * 255)
+            if getattr(self, "save_thumb", False):
+                import cv2
 
-            try:
-                thumb = reader.slide_thumbnail(resolution=1.25, units="power")
-            except ValueError:
-                thumb = reader.slide_thumbnail(resolution=8 * reader.info.mpp,
-                                               units="mpp")
-            cv2.imwrite(f"{output_dir}/thumb/{wsi_basename}.png",
-                        cv2.cvtColor(thumb, cv2.COLOR_RGB2BGR))
+                try:
+                    thumb = reader.slide_thumbnail(resolution=1.25,
+                                                   units="power")
+                except ValueError:
+                    thumb = reader.slide_thumbnail(
+                        resolution=8 * reader.info.mpp, units="mpp")
+                cv2.imwrite(f"{output_dir}/thumb/{wsi_basename}.png",
+                            cv2.cvtColor(thumb, cv2.COLOR_RGB2BGR))
 
-        idx_dict, n_ch = make_channel_index_map(self.cfg.active_decoder_kwargs)
+            idx_dict, n_ch = make_channel_index_map(
+                self.cfg.active_decoder_kwargs)
 
-        # the JAX engine's choice of loop, with gpu for its tpu: a mesh
-        # keeps the legacy loop (its post-processing row-shards)
-        backend = getattr(self, "postproc_backend", "gpu")
-        resident = (backend in ("gpu", "tpu") and self.mesh is None
-                    and os.environ.get("CERBERUS_RESIDENT", "1") != "0")
+            # the JAX engine's choice of loop, with gpu for its tpu: a mesh
+            # keeps the legacy loop (its post-processing row-shards)
+            backend = getattr(self, "postproc_backend", "gpu")
+            resident = (backend in ("gpu", "tpu") and self.mesh is None
+                        and os.environ.get("CERBERUS_RESIDENT", "1") != "0")
 
-        # mid-slide resume: the disk canvas + a tile-progress marker let a
-        # preempted job continue this slide; done_tiles index the
-        # post-processing grid (resident) or the inference grid (legacy),
-        # so the grids, the loop (1 resident, 0 legacy, as in the JAX
-        # package's marker), the patch geometry and the mask are in the
-        # fingerprint
-        progress_path = os.path.join(self.cache_path, "progress.json")
-        grid_fp = [int(ioconfig.tile_shape[0]),
-                   int(ioconfig.patch_input_shape[0]),
-                   int(ioconfig.patch_output_shape[0]),
-                   int(ioconfig.margin), int(resident),
-                   int(ioconfig_pp.tile_shape[0])]
-        mask_fp = [list(map(int, wsi_mask.shape)), int(wsi_mask.sum())]
-        done_tiles = set()
-        resume = False
-        if os.path.exists(progress_path):
-            try:
-                with open(progress_path) as handle:
-                    meta = json.load(handle)
-            except (OSError, ValueError):
-                meta = {}
-            if (meta.get("slide") == wsi_basename
-                    and meta.get("shape") == list(map(int, wsi_proc_shape))
-                    and meta.get("n_ch") == n_ch
-                    and meta.get("grid") == grid_fp
-                    and meta.get("mask") == mask_fp):
-                done_tiles = set(meta.get("done_tiles", []))
-                resume = True
-        if not resume:
-            rm_n_mkdir(self.cache_path)
-        canvas = CanvasSet(self.cache_path, tuple(wsi_proc_shape), n_ch,
-                           resume=resume)
+            # mid-slide resume: the disk canvas + a tile-progress marker let a
+            # preempted job continue this slide; done_tiles index the
+            # post-processing grid (resident) or the inference grid (legacy),
+            # so the grids, the loop (1 resident, 0 legacy, as in the JAX
+            # package's marker), the patch geometry and the mask are in the
+            # fingerprint
+            progress_path = os.path.join(self.cache_path, "progress.json")
+            grid_fp = [int(ioconfig.tile_shape[0]),
+                       int(ioconfig.patch_input_shape[0]),
+                       int(ioconfig.patch_output_shape[0]),
+                       int(ioconfig.margin), int(resident),
+                       int(ioconfig_pp.tile_shape[0])]
+            mask_fp = [list(map(int, wsi_mask.shape)), int(wsi_mask.sum())]
+            done_tiles = set()
+            resume = False
+            if os.path.exists(progress_path):
+                try:
+                    with open(progress_path) as handle:
+                        meta = json.load(handle)
+                except (OSError, ValueError):
+                    meta = {}
+                if (meta.get("slide") == wsi_basename
+                        and meta.get("shape") == list(map(int, wsi_proc_shape))
+                        and meta.get("n_ch") == n_ch
+                        and meta.get("grid") == grid_fp
+                        and meta.get("mask") == mask_fp):
+                    done_tiles = set(meta.get("done_tiles", []))
+                    resume = True
+            if not resume:
+                rm_n_mkdir(self.cache_path)
+            canvas = CanvasSet(self.cache_path, tuple(wsi_proc_shape), n_ch,
+                               resume=resume)
 
-        # the canvas-landing thread saves progress while the main thread
-        # marks empty tiles: serialise the tmp+replace
-        progress_lock = threading.Lock()
+            # the canvas-landing thread saves progress while the main thread
+            # marks empty tiles: serialise the tmp+replace
+            progress_lock = threading.Lock()
 
-        def save_progress():
-            with progress_lock:
-                with open(progress_path + ".tmp", "w") as handle:
-                    json.dump({"slide": wsi_basename,
-                               "shape": list(map(int, wsi_proc_shape)),
-                               "n_ch": n_ch,
-                               "grid": grid_fp,
-                               "mask": mask_fp,
-                               "done_tiles": sorted(done_tiles)}, handle)
-                os.replace(progress_path + ".tmp", progress_path)
+            def save_progress():
+                with progress_lock:
+                    with open(progress_path + ".tmp", "w") as handle:
+                        json.dump({"slide": wsi_basename,
+                                   "shape": list(map(int, wsi_proc_shape)),
+                                   "n_ch": n_ch,
+                                   "grid": grid_fp,
+                                   "mask": mask_fp,
+                                   "done_tiles": sorted(done_tiles)}, handle)
+                    os.replace(progress_path + ".tmp", progress_path)
 
-        patch_inputs, patch_outputs = get_coordinates(wsi_proc_shape_xy,
-                                                      ioconfig)
-        sel = filter_coordinates(wsi_mask, patch_outputs, wsi_proc_shape_xy)
-        patch_inputs = patch_inputs[sel]
-        patch_outputs = patch_outputs[sel]
-        logger.info("Preparing Input Output Placement: %.4f"
-                    % (time.perf_counter() - start))
+            patch_inputs, patch_outputs = get_coordinates(wsi_proc_shape_xy,
+                                                          ioconfig)
+            sel = filter_coordinates(wsi_mask, patch_outputs,
+                                     wsi_proc_shape_xy)
+            patch_inputs = patch_inputs[sel]
+            patch_outputs = patch_outputs[sel]
 
         # ===== inference (+ set-0 nuclei in the resident loop) ==========
-        start = time.perf_counter()
-        pp_sets = get_tile_info(wsi_proc_shape_xy, ioconfig_pp)
-        nuclei_inst_info = {}
-        info_lock = threading.Lock()
-        margin = int(ioconfig_pp.margin)
+        with trace_span("wsi/inference", logger, label="Inference Time"):
+            pp_sets = get_tile_info(wsi_proc_shape_xy, ioconfig_pp)
+            nuclei_inst_info = {}
+            info_lock = threading.Lock()
+            margin = int(ioconfig_pp.margin)
 
-        def grid_tile(inst_map, type_map, bounds, flags, _tile_idx):
-            new_dict, _ = tile_instances(inst_map, type_map, bounds, flags,
-                                         0, [], [], margin)
-            with info_lock:
-                nuclei_inst_info.update(new_dict)
+            def grid_tile(inst_map, type_map, bounds, flags, _tile_idx):
+                new_dict, _ = tile_instances(inst_map, type_map, bounds,
+                                             flags, 0, [], [], margin)
+                with info_lock:
+                    nuclei_inst_info.update(new_dict)
 
-        if resident:
-            proc = resident_wsi.ResidentWSIProcessor(
-                self, idx_dict, n_ch,
-                postproc_code=self.decoder_dict.get("Nuclei-INST"),
-                output_shape=int(self.patch_output_shape))
-            with torch.profiler.record_function("wsi/inference"):
+            if resident:
+                proc = resident_wsi.ResidentWSIProcessor(
+                    self, idx_dict, n_ch,
+                    postproc_code=self.decoder_dict.get("Nuclei-INST"),
+                    output_shape=int(self.patch_output_shape))
+                waits: dict = {}
                 deferred = proc.run(
                     reader, resolution, patch_inputs, patch_outputs,
                     pp_sets[0], wsi_mask, wsi_proc_shape_xy, done_tiles,
-                    save_progress, canvas, grid_tile)
-            logger.info("Resident grid tiles: %d deferred to the disk canvas"
-                        % len(deferred))
-        else:
-            # legacy: the inference grid's tiles through the host canvas;
-            # every set-0 tile is post-processed from the disk canvas below
-            read_s = read_wait_s = 0.0
-            set_bounds, _ = get_tile_info(wsi_proc_shape_xy, ioconfig)[0]
-            with torch.profiler.record_function("wsi/inference"):
+                    save_progress, canvas, grid_tile, totals=waits)
+                logger.info("Resident grid tiles: %d deferred to the disk "
+                            "canvas" % len(deferred))
+                for label in resident_wsi.WAIT_LABELS:
+                    logger.info("%s: %.4f" % (label, waits[label]))
+            else:
+                # legacy: the inference grid's tiles through the host
+                # canvas; every set-0 tile is post-processed from the disk
+                # canvas below
+                read_s = read_wait_s = 0.0
+                set_bounds, _ = get_tile_info(wsi_proc_shape_xy, ioconfig)[0]
                 for tile_idx, tile_bounds in enumerate(set_bounds):
                     if tile_idx in done_tiles:
                         continue
@@ -655,19 +672,18 @@ class InferManager(BaseInferManager):
                         canvas.flush()
                     done_tiles.add(tile_idx)
                     save_progress()
-            deferred = range(len(pp_sets[0][0]))
-            logger.info("Legacy Read Time: %.4f" % read_s)
-            logger.info("Legacy Read Wait Time: %.4f" % read_wait_s)
-        logger.info("Inference Time: %.4f" % (time.perf_counter() - start))
+                deferred = range(len(pp_sets[0][0]))
+                logger.info("Legacy Read Time: %.4f" % read_s)
+                logger.info("Legacy Read Wait Time: %.4f" % read_wait_s)
 
         # ===== nuclei post-processing (sets 1-3, deferred set 0) =========
-        start = time.perf_counter()
-        if "Nuclei-INST" in idx_dict:
-            postproc_code = self.decoder_dict["Nuclei-INST"]
-            deferred = set(deferred)
-            pool = getattr(self, "_postproc_workers", None)
-            with ThreadPoolExecutor(max_workers=3) as host_pool, \
-                    torch.profiler.record_function("wsi/nuclei_sets"):
+        with trace_span("wsi/nuclei_sets", logger,
+                        label="Nuclei Post Proc Time"), \
+                ThreadPoolExecutor(max_workers=3) as host_pool:
+            if "Nuclei-INST" in idx_dict:
+                postproc_code = self.decoder_dict["Nuclei-INST"]
+                deferred = set(deferred)
+                pool = getattr(self, "_postproc_workers", None)
                 # the tissue test sums the whole mask: once, for every tile
                 # of every set, when a tile no patch output reaches asks
                 all_bounds = np.concatenate([b for b, _ in pp_sets])
@@ -719,35 +735,31 @@ class InferManager(BaseInferManager):
                         nuclei_inst_info.update(new_dict)
                         for u in remove_uuids:
                             nuclei_inst_info.pop(u, None)
-        wsi_inst_info = {"Nuclei": nuclei_inst_info}
-        logger.info("Nuclei Post Proc Time: %.4f"
-                    % (time.perf_counter() - start))
+            wsi_inst_info = {"Nuclei": nuclei_inst_info}
 
         # ===== tissue-class map ==========================================
-        start = time.perf_counter()
-        if "Patch-Class" in idx_dict:
-            import cv2
-            import scipy.io as sio
+        with trace_span("wsi/tissue_map", logger,
+                        label="Tissue Region Post Proc Time"):
+            if "Patch-Class" in idx_dict:
+                import cv2
+                import scipy.io as sio
 
-            H, W = int(wsi_proc_shape[0]), int(wsi_proc_shape[1])
-            if H % 4 == 0 and W % 4 == 0:
-                pclass = canvas.read_decimated(4, idx_dict["Patch-Class"][0])
-            else:
-                pclass = _read_region_resized(
-                    canvas, (0, 0, W, H), [idx_dict["Patch-Class"][0]], 0.25,
-                    interp=cv2.INTER_NEAREST)[..., 0]
-            lores_mask = cv2.resize(wsi_mask,
-                                    (pclass.shape[1], pclass.shape[0]),
-                                    interpolation=cv2.INTER_NEAREST)
-            pclass *= lores_mask
-            sio.savemat("%s/tissue/%s.mat" % (output_dir, wsi_basename),
-                        {"pclass": pclass})
-        logger.info("Tissue Region Post Proc Time: %.4f"
-                    % (time.perf_counter() - start))
+                H, W = int(wsi_proc_shape[0]), int(wsi_proc_shape[1])
+                pclass_ch = idx_dict["Patch-Class"][0]
+                if H % 4 == 0 and W % 4 == 0:
+                    pclass = canvas.read_decimated(4, pclass_ch)
+                else:
+                    pclass = _read_region_resized(
+                        canvas, (0, 0, W, H), [pclass_ch], 0.25,
+                        interp=cv2.INTER_NEAREST)[..., 0]
+                lores_mask = cv2.resize(wsi_mask,
+                                        (pclass.shape[1], pclass.shape[0]),
+                                        interpolation=cv2.INTER_NEAREST)
+                pclass *= lores_mask
+                sio.savemat("%s/tissue/%s.mat" % (output_dir, wsi_basename),
+                            {"pclass": pclass})
 
         # ===== gland + lumen per tissue region ===========================
-        start = time.perf_counter()
-        wsi_mask_lab, tissue_info_list = _plan_tissue_regions(wsi_mask)
         gland_inst_info = {}
         lumen_inst_info = {}
         target_list = [t for t in ("Gland", "Lumen")
@@ -788,12 +800,17 @@ class InferManager(BaseInferManager):
                     mask=region_mask), new_idx)
             return np.array([cmin, rmin]), regions
 
-        with ThreadPoolExecutor(max_workers=1) as prefetch, \
-                torch.profiler.record_function("wsi/gland_lumen"):
+        with trace_span("wsi/gland_lumen", logger,
+                        label="Gland & Lumen Post Proc Time"), \
+                ThreadPoolExecutor(max_workers=1) as prefetch:
+            wsi_mask_lab, tissue_info_list = _plan_tissue_regions(wsi_mask)
+            region_totals: dict = {}
             fut = (prefetch.submit(prep_region, 0, tissue_info_list[0])
                    if tissue_info_list else None)
             for region_idx in range(len(tissue_info_list)):
-                tissue_topleft, regions = fut.result()
+                with trace_span("wsi/region_wait", label=REGION_WAIT,
+                                totals=region_totals):
+                    tissue_topleft, regions = fut.result()
                 if region_idx + 1 < len(tissue_info_list):
                     fut = prefetch.submit(prep_region, region_idx + 1,
                                           tissue_info_list[region_idx + 1])
@@ -814,25 +831,29 @@ class InferManager(BaseInferManager):
                             self.device, mesh=self.mesh)
                     pred_inst_map[tissue_code], pred_type_map[tissue_code] = \
                         result
-                if "Gland" in pred_inst_map and "Lumen" in pred_inst_map:
-                    binary_gland = (pred_inst_map["Gland"] > 0).astype(
-                        pred_inst_map["Lumen"].dtype)
-                    pred_inst_map["Lumen"] = (binary_gland
-                                              * pred_inst_map["Lumen"])
-                for tissue_code in target_list:
-                    info = get_inst_info_dict(pred_inst_map[tissue_code],
-                                              pred_type_map[tissue_code], ds)
-                    wsi_info = _info_to_wsi_format(info, tissue_topleft)
-                    if tissue_code == "Gland":
-                        gland_inst_info.update(wsi_info)
-                    else:
-                        lumen_inst_info.update(wsi_info)
-        if "Gland" in target_list:
-            wsi_inst_info["Gland"] = gland_inst_info
-        if "Lumen" in target_list:
-            wsi_inst_info["Lumen"] = lumen_inst_info
-        logger.info("Gland & Lumen Post Proc Time: %.4f"
-                    % (time.perf_counter() - start))
+                with trace_span("wsi/region_info", label=REGION_INFO,
+                                totals=region_totals):
+                    if "Gland" in pred_inst_map and "Lumen" in pred_inst_map:
+                        binary_gland = (pred_inst_map["Gland"] > 0).astype(
+                            pred_inst_map["Lumen"].dtype)
+                        pred_inst_map["Lumen"] = (binary_gland
+                                                  * pred_inst_map["Lumen"])
+                    for tissue_code in target_list:
+                        info = get_inst_info_dict(
+                            pred_inst_map[tissue_code],
+                            pred_type_map[tissue_code], ds)
+                        wsi_info = _info_to_wsi_format(info, tissue_topleft)
+                        if tissue_code == "Gland":
+                            gland_inst_info.update(wsi_info)
+                        else:
+                            lumen_inst_info.update(wsi_info)
+            if "Gland" in target_list:
+                wsi_inst_info["Gland"] = gland_inst_info
+            if "Lumen" in target_list:
+                wsi_inst_info["Lumen"] = lumen_inst_info
+            for label in (REGION_WAIT, REGION_INFO):
+                logger.info("%s: %.4f"
+                            % (label, region_totals.get(label, 0.0)))
 
         wsi_inst_info["proc_resolution"] = {
             "resolution": self.wsi_proc_mag, "units": "mpp"}
@@ -908,7 +929,6 @@ class InferManager(BaseInferManager):
     def _process_slides(self, ioconfig, ioconfig_pp, logging_dir):
         for wsi_path, mask_path in zip(self.input_list, self.mask_list):
             wsi_basename = pathlib.Path(wsi_path).stem
-            start = time.perf_counter()
             dt_string = datetime.now().strftime("%d-%m-%Y_%H:%M:%S")
             log_path = f"{logging_dir}/{wsi_basename}_{dt_string}_std.log"
             self.logger = logging.getLogger("cerberus_tpu_torch.wsi")
@@ -924,12 +944,11 @@ class InferManager(BaseInferManager):
                     # CERBERUS_PROFILE_DIR=<dir> writes a Chrome trace per
                     # slide; the span goes to the per-slide log either way
                     with maybe_profile(wsi_basename), trace_span(
-                            f"wsi/{wsi_basename}", self.logger):
+                            f"wsi/{wsi_basename}", self.logger,
+                            label="Overall Time"):
                         self.process_single_file(
                             ioconfig, ioconfig_pp, wsi_path, mask_path,
                             wsi_basename, self.output_dir)
-                    self.logger.info("Overall Time: %.4f"
-                                     % (time.perf_counter() - start))
                     self.logger.info("Finish")
                 else:
                     self.logger.warning(

@@ -1,9 +1,14 @@
 """Tracing and profiling helpers (counterpart of
 ``cerberus_tpu/utils/profiling.py``).
 
-``trace_span`` logs a phase's wall time as ``"<name>: <seconds>"`` (the
-per-slide log's spans) inside a ``torch.profiler.record_function`` and,
-on the card, an NVTX range, so the phase shows in a profiler trace.
+``trace_span`` logs a phase's wall time as ``"<label>: <seconds>"`` (the
+per-slide log's spans; the label defaults to the trace name) inside a
+``torch.profiler.record_function`` and, on the card, an NVTX range, so
+the phase shows in a profiler trace. Given a ``totals`` dict it adds its
+seconds there instead of logging, so a span opened once per row, file or
+region is logged once per slide or job by its caller. Open spans only on
+the thread that enqueues the device work: a ``record_function`` opened on
+a worker thread does not show in the trace.
 ``maybe_profile`` writes a ``torch.profiler`` Chrome trace of its region
 when ``CERBERUS_PROFILE_DIR`` is set.
 """
@@ -18,8 +23,12 @@ import torch
 
 
 @contextlib.contextmanager
-def trace_span(name: str, logger: logging.Logger = None):
-    """Wall-clock + profiler span; logs ``'<name>: <seconds>'`` on exit."""
+def trace_span(name: str, logger: logging.Logger = None, label: str = None,
+               totals: dict = None):
+    """Wall-clock + profiler span named ``name``; on exit logs
+    ``'<label>: <seconds>'`` (``label`` defaults to ``name``), or, with
+    ``totals``, adds the seconds to ``totals[label]`` and logs nothing."""
+    label = name if label is None else label
     start = time.perf_counter()
     nvtx = torch.cuda.is_available()
     with torch.profiler.record_function(name):
@@ -30,7 +39,11 @@ def trace_span(name: str, logger: logging.Logger = None):
         finally:
             if nvtx:
                 torch.cuda.nvtx.range_pop()
-    (logger or logging).info("%s: %.4f", name, time.perf_counter() - start)
+    seconds = time.perf_counter() - start
+    if totals is not None:
+        totals[label] = totals.get(label, 0.0) + seconds
+    else:
+        (logger or logging).info("%s: %.4f", label, seconds)
 
 
 @contextlib.contextmanager

@@ -17,9 +17,15 @@ Counterpart of ``cerberus_tpu/infer/tile.py:44-341``, split at one seam:
     ``spawn`` processes that receive numpy arrays only (a forked child of a
     process that has initialised CUDA cannot use it, and the families need
     no card).
-  * The writer — ``instance_info`` (2x nearest upscale + instance dicts),
-    ``.mat`` files, overlay, PNG read — is host code that imports cv2 inside
-    its functions.
+  * The records — ``instance_info``, the instance dictionaries in the 2x
+    frame of the reference — come, on the ``gpu`` backend, from a
+    per-instance table (``ops/inst_stats.py``) built on the card from the
+    1x label maps and copied down with them (``post_process_canvas(...,
+    stats=)``): the host traces each instance's contour on its own 2x
+    crop and nothing else. The ``cpu`` backend has no table and runs
+    ``get_inst_info_dict`` on the 2x-upscaled maps. The writer — ``.mat``
+    files and the overlay on the 2x-upscaled image — and the PNG read are
+    host code that imports cv2 inside its functions.
 
 ``process_file_list`` (the CLI) runs the JAX engine's cross-file batch
 cache (``cerberus_tpu/infer/tile.py:201-223,269-309``, here
@@ -55,7 +61,8 @@ import torch
 from ..config import DEFAULT_TARGET_LIST
 from ..data.patching import make_channel_index_map, prepare_patching
 from ..ops.device_postproc import KERNELS, Impl
-from ..ops.gpu_postproc import GPU_POSTPROC_FUNC_DICT
+from ..ops.gpu_postproc import GPU_POSTPROC_FUNC_DICT, compact_present_ids
+from ..ops.inst_stats import inst_info_from_stats, split_tables
 from ..ops.postproc import POSTPROC_FUNC_DICT, get_inst_info_dict
 from ..ops.stitch import stitch_canvas
 from ..utils import log_info, mkdir, recur_find_ext
@@ -104,49 +111,104 @@ def gather_windows(img: torch.Tensor, tl_list, size: int) -> torch.Tensor:
     return img[window_index(tl_list, size, img.device)]
 
 
-def _post_process(canvas, postproc_code: dict, postproc_list,
-                  decoder_kwargs: dict, families: dict, **kwargs):
-    """Each task's family (from ``families``) on a stitched, source-cropped
-    (H, W, C) canvas, lumen gated by the glands. Returns (inst_map_dict,
-    type_map_dict, pclass_map) as numpy."""
+def post_process_canvas(canvas: torch.Tensor, postproc_code: dict,
+                        postproc_list, decoder_kwargs: dict,
+                        impl: Impl = KERNELS, stats: dict = None):
+    """Instance post-processing of a stitched, source-cropped (H, W, C)
+    device canvas (the device half of the JAX ``post_process_tile``):
+    each task's family on the card, ids compacted there, lumen kept inside
+    the glands (reference tile.py:187-191; its ids are not compacted
+    again), and one ``inst_stats`` launch for every task's per-instance
+    table. The maps, type maps, tissue classes and tables come to the host
+    in one copy. Returns (inst_map_dict, type_map_dict, pclass_map) as
+    numpy; given a dict as ``stats``, puts each task's table
+    (``InstStats``, for ``instance_info``) in it."""
     idx_dict, _ = make_channel_index_map(decoder_kwargs)
-    inst_maps, type_maps = {}, {}
+    labels, counts, type_planes = {}, {}, {}
     pclass_map = None
     for tissue_code in postproc_list:
         tissue_code = tissue_code.capitalize()
         if tissue_code + "-INST" in postproc_code:
-            proc_cls = families[postproc_code[tissue_code + "-INST"]]
-            inst_maps[tissue_code], type_maps[tissue_code] = \
-                proc_cls.post_process(canvas, idx_dict, tissue_code, **kwargs)
+            family = GPU_POSTPROC_FUNC_DICT[postproc_code[tissue_code
+                                                          + "-INST"]]
+            s, e = idx_dict[tissue_code + "-INST"]
+            labels[tissue_code], counts[tissue_code] = compact_present_ids(
+                family.labels(canvas[..., s:e], tissue_code, impl=impl),
+                impl)
+            if tissue_code + "-TYPE" in idx_dict:
+                s, e = idx_dict[tissue_code + "-TYPE"]
+                type_planes[tissue_code] = canvas[..., s:e].float()
         elif tissue_code == "Patch-class" and "Patch-Class" in idx_dict:
             pclass_map = canvas[..., idx_dict["Patch-Class"][0]]
-            if isinstance(pclass_map, torch.Tensor):
-                pclass_map = pclass_map.cpu().numpy()
-    # lumen predictions only survive inside glands (reference tile.py:187-191)
-    if "Lumen" in inst_maps and "Gland" in inst_maps:
-        gland = (inst_maps["Gland"] > 0).astype(inst_maps["Lumen"].dtype)
-        inst_maps["Lumen"] = gland * inst_maps["Lumen"]
-    return inst_maps, type_maps, pclass_map
+    if "Lumen" in labels and "Gland" in labels:
+        labels["Lumen"] = labels["Lumen"] * (labels["Gland"] > 0)
+    tasks = list(labels)
+    sources = _type_sources(postproc_list, labels, type_planes)
+    typed = [t for t in type_planes if t in sources.values()]
+    type_ids = [type_planes[t][..., 0].to(torch.int32) for t in typed]
+    sizes = torch.stack([counts[t] for t in tasks]
+                        + [p.max() for p in type_ids]).tolist()
+    table = impl.stats(
+        torch.stack([labels[t] for t in tasks]),
+        torch.stack(type_ids) if type_ids else None, sizes[:len(tasks)],
+        [typed.index(sources[t]) if sources[t] else -1 for t in tasks],
+        [max(m, 0) + 1 for m in sizes[len(tasks):]])
+    extra = [pclass_map] if pclass_map is not None else []
+    host = _to_host([table.sums, table.ints, *(labels[t] for t in tasks),
+                     *(type_planes[t] for t in type_planes), *extra])
+    if stats is not None:
+        stats.update(zip(tasks, split_tables(table.layout, host[1],
+                                             host[0])))
+    inst_maps = {t: m.astype(np.float64)
+                 for t, m in zip(tasks, host[2:2 + len(tasks)])}
+    squeezed = dict(zip(type_planes, (
+        np.squeeze(m) for m in host[2 + len(tasks):][:len(type_planes)])))
+    type_maps = {t: squeezed.get(t) for t in tasks}
+    return inst_maps, type_maps, host[-1] if extra else None
 
 
-def post_process_canvas(canvas: torch.Tensor, postproc_code: dict,
-                        postproc_list, decoder_kwargs: dict,
-                        impl: Impl = KERNELS):
-    """Instance post-processing of a stitched, source-cropped (H, W, C)
-    device canvas (the device half of the JAX ``post_process_tile``).
-    Returns (inst_map_dict, type_map_dict, pclass_map) as numpy."""
-    return _post_process(canvas, postproc_code, postproc_list,
-                         decoder_kwargs, GPU_POSTPROC_FUNC_DICT, impl=impl)
+def _to_host(tensors) -> list:
+    """Tensors of one device as numpy arrays of their shapes and dtypes,
+    through one copy (one synchronisation) of their bytes."""
+    parts, metas = [], []
+    for t in tensors:
+        raw = t.contiguous().reshape(-1).view(torch.uint8)
+        pad = -raw.numel() % 8  # every array starts 8-byte aligned
+        parts += [raw, raw.new_zeros(pad)] if pad else [raw]
+        metas.append((t.shape, torch.empty(0, dtype=t.dtype).numpy().dtype,
+                      raw.numel() + pad))
+    buf = torch.cat(parts).cpu().numpy()
+    out, start = [], 0
+    for shape, dtype, nbytes in metas:
+        size = int(np.prod(shape)) * dtype.itemsize
+        out.append(buf[start:start + size].view(dtype).reshape(shape))
+        start += nbytes
+    return out
 
 
 def post_process_host(canvas: np.ndarray, postproc_code: dict,
                       postproc_list, decoder_kwargs: dict):
     """The ``cpu`` backend: the scipy/cv2 oracle families on a stitched,
     source-cropped (H, W, C) numpy canvas (the JAX ``post_process_tile``
-    with ``backend="cpu"``). Returns (inst_map_dict, type_map_dict,
-    pclass_map) as ``post_process_canvas`` does."""
-    return _post_process(canvas, postproc_code, postproc_list,
-                         decoder_kwargs, POSTPROC_FUNC_DICT)
+    with ``backend="cpu"``), lumen gated by the glands. Returns
+    (inst_map_dict, type_map_dict, pclass_map) as ``post_process_canvas``
+    does."""
+    idx_dict, _ = make_channel_index_map(decoder_kwargs)
+    inst_maps, type_maps = {}, {}
+    pclass_map = None
+    for tissue_code in postproc_list:
+        tissue_code = tissue_code.capitalize()
+        if tissue_code + "-INST" in postproc_code:
+            proc_cls = POSTPROC_FUNC_DICT[postproc_code[tissue_code + "-INST"]]
+            inst_maps[tissue_code], type_maps[tissue_code] = \
+                proc_cls.post_process(canvas, idx_dict, tissue_code)
+        elif tissue_code == "Patch-class" and "Patch-Class" in idx_dict:
+            pclass_map = canvas[..., idx_dict["Patch-Class"][0]]
+    # lumen predictions only survive inside glands (reference tile.py:187-191)
+    if "Lumen" in inst_maps and "Gland" in inst_maps:
+        gland = (inst_maps["Gland"] > 0).astype(inst_maps["Lumen"].dtype)
+        inst_maps["Lumen"] = gland * inst_maps["Lumen"]
+    return inst_maps, type_maps, pclass_map
 
 
 def _host_postproc_and_info(canvas: np.ndarray, postproc_code: dict,
@@ -165,20 +227,38 @@ def _upscale2x(arr: np.ndarray) -> np.ndarray:
     return np.repeat(np.repeat(arr, 2, axis=0), 2, axis=1)
 
 
-def instance_info(inst_maps: dict, type_maps: dict, postproc_list) -> dict:
-    """Per-task instance dictionaries from the 2x-upscaled maps. Lumen (no
-    TYPE head) is typed against the previous task's type map, as in the
-    reference."""
-    info = {}
-    type_tmp = None
+def _type_sources(postproc_list, inst_maps: dict, type_maps: dict) -> dict:
+    """Each task of ``inst_maps``, in ``postproc_list``'s order -> the task
+    whose type map types its instances, or None: the last task so far,
+    lumen excepted, with a type map (lumen, without a TYPE head, takes the
+    gland's, as in the reference)."""
+    sources, last = {}, None
     for tissue_code in postproc_list:
         tissue_code = tissue_code.capitalize()
         if tissue_code not in inst_maps:
             continue
-        inst_tmp = _upscale2x(inst_maps[tissue_code])
-        if tissue_code != "Lumen" and type_maps[tissue_code] is not None:
-            type_tmp = _upscale2x(type_maps[tissue_code])
-        info[tissue_code] = get_inst_info_dict(inst_tmp, type_tmp)
+        if tissue_code != "Lumen" and type_maps.get(tissue_code) is not None:
+            last = tissue_code
+        sources[tissue_code] = last
+    return sources
+
+
+def instance_info(inst_maps: dict, type_maps: dict, postproc_list,
+                  stats: dict = None) -> dict:
+    """Per-task instance dictionaries in the 2x-upscaled frame. With the
+    tables that ``post_process_canvas(..., stats=)`` filled, from them and
+    each instance's own crop; without (the ``cpu`` backend), by
+    ``get_inst_info_dict`` on the 2x-upscaled maps. The two are equal."""
+    sources = _type_sources(postproc_list, inst_maps, type_maps)
+    if stats:
+        return {task: inst_info_from_stats(inst_maps[task], stats[task])
+                for task in sources}
+    info, upscaled = {}, {}
+    for task, source in sources.items():
+        if source is not None and source not in upscaled:
+            upscaled[source] = _upscale2x(type_maps[source])
+        info[task] = get_inst_info_dict(_upscale2x(inst_maps[task]),
+                                        upscaled.get(source))
     return info
 
 
@@ -379,11 +459,12 @@ class InferManager(BaseInferManager):
             canvases = self.cached_canvases(map(read, file_path_list),
                                             totals)
 
-        def finish(name, img, inst_maps, type_maps, pclass_map, info=None):
+        def finish(name, img, inst_maps, type_maps, pclass_map, info=None,
+                   stats=None):
             if info is None:
                 with _span("tile/instance_info", totals):
                     info = instance_info(inst_maps, type_maps,
-                                         self.postproc_list)
+                                         self.postproc_list, stats)
             with _span("tile/write", totals):
                 save_results(self.output_dir, name, img, inst_maps, info,
                              type_maps, pclass_map, viz_info)
@@ -398,11 +479,13 @@ class InferManager(BaseInferManager):
         try:
             futures = {}
             for name, img, canvas in canvases:
+                stats = None
                 with _span("tile/postproc", totals):
                     if backend != "cpu":
+                        stats = {}
                         maps = post_process_canvas(
                             canvas, self.decoder_dict, self.postproc_list,
-                            self.cfg.active_decoder_kwargs)
+                            self.cfg.active_decoder_kwargs, stats=stats)
                     else:
                         # one copy of the stitched canvas to the host per
                         # image
@@ -415,7 +498,7 @@ class InferManager(BaseInferManager):
                             futures[pool.submit(_host_postproc_and_info,
                                                 *args)] = (name, img)
                             continue
-                finish(name, img, *maps)
+                finish(name, img, *maps, stats=stats)
             # as the JAX engine: a failed worker is logged and its image
             # left without outputs; the others are written
             for fut in as_completed(futures):

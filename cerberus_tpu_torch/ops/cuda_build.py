@@ -13,7 +13,8 @@ buckets depend on IEEE division.
 
 ``launch_counts`` holds one plain integer per kernel entry (``watershed.cu``
 has two: the watershed and its one-level ``propagate_labels``); each wrapper
-adds one where it launches its kernel and nowhere else.
+adds one where it launches its kernel and nowhere else. ``LAUNCH_COUNTERS``
+is in the order of ``device_postproc.Impl``'s fields.
 """
 from __future__ import annotations
 
@@ -30,8 +31,9 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-KERNELS = ("cc_label", "hist16384", "watershed")
-LAUNCH_COUNTERS = KERNELS + ("propagate_labels",)
+KERNELS = ("cc_label", "hist16384", "watershed", "inst_stats")
+LAUNCH_COUNTERS = ("cc_label", "hist16384", "watershed", "propagate_labels",
+                   "inst_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -20,7 +20,8 @@ contracts so label maps are byte-equal:
 Every function takes an ``impl`` (``KERNELS`` by default): the kernel
 wrappers, which run the CUDA kernels on CUDA tensors and their plain
 versions on CPU tensors. ``PLAIN`` forces the plain versions everywhere,
-so the two can be held against each other on the card.
+so the two can be held against each other on the card. ``Impl.stats`` is
+the per-instance table (``inst_stats``) behind the tile engine's records.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import cc_label, hist16384, watershed as ws
+from . import cc_label, hist16384, inst_stats, watershed as ws
 
 N_LEVELS = ws.N_LEVELS
 HIST_CAP = hist16384.N_BINS
@@ -41,12 +42,14 @@ class Impl(NamedTuple):
     hist: Callable
     watershed: Callable
     propagate: Callable
+    stats: Callable
 
 
 KERNELS = Impl(cc_label.connected_components, hist16384.hist16384,
-               ws.watershed, ws.propagate_labels)
+               ws.watershed, ws.propagate_labels, inst_stats.inst_stats)
 PLAIN = Impl(cc_label.connected_components_plain, hist16384.hist16384_plain,
-             ws.watershed_plain, ws.propagate_labels_plain)
+             ws.watershed_plain, ws.propagate_labels_plain,
+             inst_stats.inst_stats_plain)
 
 
 def disk_kernel(ksize: int) -> np.ndarray:

@@ -88,15 +88,17 @@ class CerberusPredictor:
         postproc_list = list(postproc_list or DEFAULT_TARGET_LIST)
         args = (self.decoder_dict, postproc_list,
                 self.cfg.active_decoder_kwargs)
+        stats = None
         with self._lock:
             canvas = self._manager.infer_canvas(img)
             if self.postproc_backend == "cpu":
                 inst_maps, type_maps, pclass_map = post_process_host(
                     canvas.cpu().numpy(), *args)
             else:
+                stats = {}
                 inst_maps, type_maps, pclass_map = post_process_canvas(
-                    canvas, *args)
-        inst_infos = instance_info(inst_maps, type_maps, postproc_list)
+                    canvas, *args, stats=stats)
+        inst_infos = instance_info(inst_maps, type_maps, postproc_list, stats)
         result = {}
         for tissue, inst_map in inst_maps.items():
             result[tissue] = {

@@ -18,7 +18,9 @@ Phases, each printing JSON lines:
      nuclei-like plane, the same plane quantised into plateaus, and a
      768^2 one-pixel spiral corridor flooded from both ends) and at the
      WSI grid tile's window (CC and both flood entries on 2560^2
-     nuclei-like planes), with median
+     nuclei-like planes), and the tile records' per-instance tables
+     (``inst_stats``) on gland, gated lumen and nuclei stacks of 1000^2
+     and 1536^2, one launch a stack, with median
      CUDA-event times of kernel, plain version and, for the histogram,
      ``torch.bincount``. Each kernel case times a call four ways: ``ms``
      (one call per CUDA-event pair, the host's enqueue inside the window),
@@ -249,6 +251,9 @@ import traceback
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the tile engine's kernel alone (the records' per-instance tables): no
+# WSI path launches it
+TILE_ONLY_KERNELS = ("inst_stats",)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 FWD_REL_TOL = 1e-3
@@ -416,6 +421,9 @@ def phase_kernels(torch, dev):
     from cerberus_tpu_torch.ops.hist16384 import (
         REPLACES as H_REPLACES, SOURCE as H_SOURCE, hist16384,
         hist16384_plain)
+    from cerberus_tpu_torch.ops.inst_stats import (
+        REPLACES as IS_REPLACES, SOURCE as IS_SOURCE, inst_stats,
+        inst_stats_plain)
     from cerberus_tpu_torch.ops.watershed import (
         REPLACES as WS_REPLACES, SOURCE as WS_SOURCE, flood_stats,
         propagate_labels, propagate_labels_plain, watershed, watershed_plain)
@@ -585,12 +593,49 @@ def phase_kernels(torch, dev):
             ref = refs[-1]
             check(name, case, got, ref, times, plain_ms, None, bytes_,
                   n * (6 if name == "watershed" else 4), report, stats)
+    # the tile records' tables: a gland, lumen (gated by the glands) and
+    # nuclei stack, typed by spatially coherent class planes, in one launch;
+    # 1536^2 is the tile benchmark's largest region, 1000^2 the main path's
+    for side, report in ((1000, False), (1536, True)):
+        hw = (side, side)
+        planes, n_ids = [], []
+        for seed, (n, rmin, rmax) in enumerate(
+                ((side * side // 160000, 60, 200),
+                 (side * side // 40000, 10, 40),
+                 (side * side // 620, 3, 9))):
+            lab, n_lab = D.compact_labels(connected_components(
+                torch.from_numpy(blob_prob(hw, n, 30 + seed, rmin, rmax)
+                                 > 0.5).to(dev)))
+            planes.append(lab)
+            n_ids.append(n_lab)
+        planes[1] = planes[1] * (planes[0] > 0)
+        labels = torch.stack(planes).contiguous()
+        types = torch.from_numpy(np.stack([
+            np.minimum(np.floor(blob_prob(hw, 40, 40, 20, 120) * 3), 2),
+            np.minimum(np.floor(blob_prob(hw, 900, 41, 5, 20) * 7), 6)
+        ]).astype(np.int32)).to(dev)
+        args = (labels, types, n_ids, [0, 0, 1], [3, 7])
+
+        def flat(table):
+            return torch.cat([table.ints.long(), table.sums])
+
+        refs = []
+        plain_ms = cuda_ms(lambda: refs.append(inst_stats_plain(*args)), 3)
+        got = inst_stats(*args)
+        # label planes and the type planes they use read once, tables
+        # written once
+        bytes_ = (labels.numel() * 4 + types.numel() * 4
+                  + got.ints.numel() * 4 + got.sums.numel() * 8)
+        check("inst_stats", "tile%d" % side, flat(got), flat(refs[-1]),
+              kernel_times(lambda: inst_stats(*args), 50), plain_ms, None,
+              bytes_, labels.numel(), report, {"n_ids": n_ids})
     for name in rows:
         rows[name]["max_abs_err"] = worst[name]
     sources = {"cc_label": (CC_SOURCE, CC_REPLACES),
                "hist16384": (H_SOURCE, H_REPLACES),
                "watershed": (WS_SOURCE, WS_REPLACES),
-               "propagate_labels": (WS_SOURCE, WS_REPLACES)}
+               "propagate_labels": (WS_SOURCE, WS_REPLACES),
+               "inst_stats": (IS_SOURCE, IS_REPLACES)}
     return rows, sources
 
 
@@ -1615,7 +1660,7 @@ def phase_wsi(torch, manager):
     if deferred:
         raise AssertionError("grid tiles deferred: %s" % deferred)
     for name, count in launches.items():
-        if count <= 0:
+        if count <= 0 and name not in TILE_ONLY_KERNELS:
             raise AssertionError("kernel %s was not launched on the WSI "
                                  "path" % name)
     if sum(instances["Nuclei_grid"]) <= 0 or instances["Gland"] <= 0:
@@ -1691,7 +1736,8 @@ def check_cli_outputs(run, phase, hw=WSI_HW, kernels=True,
                       tasks=("Nuclei", "Gland"), pclass=True) -> None:
     """The checks every WSI CLI phase makes: the slide's dimensions, a
     tissue map of classes in [0, 9) (with ``pclass``), instances of each
-    of ``tasks``, and (for the card's families) every kernel launched."""
+    of ``tasks``, and (for the card's families) every kernel but the tile
+    engine's launched."""
     dat, classes = run["dat"], run["pclass_classes"]
     if [int(v) for v in dat["proc_dimensions"]] != list(hw) or (
             pclass and not (classes and 0 <= min(classes)
@@ -1701,7 +1747,7 @@ def check_cli_outputs(run, phase, hw=WSI_HW, kernels=True,
         raise AssertionError("%s: no instances of one of %s"
                              % (phase, tasks))
     for name, count in run["launches"].items():
-        if kernels and count <= 0:
+        if kernels and count <= 0 and name not in TILE_ONLY_KERNELS:
             raise AssertionError("%s: kernel %s was not launched"
                                  % (phase, name))
 

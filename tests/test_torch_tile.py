@@ -29,6 +29,7 @@ from cerberus_tpu.infer.steps import fused_infer_outputs
 from cerberus_tpu.infer.tile import post_process_tile
 from cerberus_tpu.models.net_desc import init_net_params
 from cerberus_tpu.ops.stitch import stitch_canvas as jax_stitch
+from cerberus_tpu_torch.infer import tile as port_tile
 from cerberus_tpu_torch.infer.tile import (
     InferManager,
     _host_postproc_and_info,
@@ -37,7 +38,10 @@ from cerberus_tpu_torch.infer.tile import (
     post_process_host,
 )
 from cerberus_tpu_torch.models.convert import state_dict_from_jax_params
+from cerberus_tpu_torch.ops.inst_stats import inst_stats_plain, split_tables
+from cerberus_tpu_torch.predictor import CerberusPredictor
 from cerberus_tpu_torch.run_infer_tile import main
+from test_torch_wsi import stub_outputs
 
 torch.set_num_threads(2)
 
@@ -296,3 +300,191 @@ def test_cli_dense_selects_1168_to_864(model_dir, tmp_path, monkeypatch):
     assert seen == [((2, 1168, 1168, 3), 864)]
     mat = sio.loadmat(str(output_dir / "nuclei_mat" / "t.mat"))
     assert mat["inst_map"].shape == (100, 120)
+
+
+# ---------------------------------------------------------------------------
+# the records from the card's per-instance tables (``ops/inst_stats``)
+# against ``get_inst_info_dict`` on the 2x-upscaled maps
+# ---------------------------------------------------------------------------
+
+
+def _discs(hw, n, seed, rmax):
+    """Seeded discs, ids compacted to 1..k, as float64."""
+    rng = np.random.default_rng(seed)
+    lab = np.zeros(hw, np.int64)
+    yy, xx = np.mgrid[:hw[0], :hw[1]]
+    for k in range(n):
+        cy, cx = rng.integers(0, hw[0]), rng.integers(0, hw[1])
+        r = rng.integers(1, rmax)
+        lab[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = k + 1
+    ids = np.unique(lab)
+    ids = ids[ids > 0]
+    lut = np.zeros(n + 1, np.float64)
+    lut[ids] = np.arange(1, len(ids) + 1)
+    return lut[lab]
+
+
+def _assert_records_equal(got, ref):
+    """Keys (their type, dtype and order) and every field, exactly."""
+    assert list(got) == list(ref)
+    for task in ref:
+        assert list(got[task]) == list(ref[task]), task
+        for k_got, k_ref in zip(got[task], ref[task]):
+            assert type(k_got) is type(k_ref)
+        for key, entry in ref[task].items():
+            assert list(got[task][key]) == list(entry)
+            for field, value in entry.items():
+                mine = got[task][key][field]
+                assert type(mine) is type(value), (task, key, field)
+                if isinstance(value, np.ndarray):
+                    assert mine.dtype == value.dtype, (task, key, field)
+                np.testing.assert_array_equal(mine, value,
+                                              err_msg="%s %s" % (task, field))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_table_fed_records_equal_upscaled_map_records(seed):
+    """Seeded gland, lumen (gated by the glands, ids with gaps) and nuclei
+    maps with their type maps: ``instance_info`` from the tables equals
+    ``get_inst_info_dict`` on the ``_upscale2x`` maps, task by task, to the
+    last bit of every centroid and type share."""
+    hw = (150 + 7 * seed, 170 - 5 * seed)
+    rng = np.random.default_rng(100 + seed)
+    gland = _discs(hw, 6, seed, 45)
+    inst_maps = {"Gland": gland,
+                 "Lumen": _discs(hw, 30, 10 + seed, 9) * (gland > 0),
+                 "Nuclei": _discs(hw, 120, 20 + seed, 7)}
+    type_maps = {"Gland": rng.integers(0, 3, hw).astype(np.float32),
+                 "Lumen": None,
+                 "Nuclei": rng.integers(0, 7, hw).astype(np.float32)}
+    labels = torch.from_numpy(np.stack(list(inst_maps.values())).astype(
+        np.int32))
+    types = torch.from_numpy(np.stack([type_maps["Gland"],
+                                       type_maps["Nuclei"]]).astype(np.int32))
+    table = inst_stats_plain(labels, types,
+                             [int(m.max()) for m in inst_maps.values()],
+                             [0, 0, 1], [3, 7])
+    stats = dict(zip(inst_maps, split_tables(
+        table.layout, table.ints.numpy(), table.sums.numpy())))
+    tasks = list(DEFAULT_TARGET_LIST)
+    got = instance_info(inst_maps, type_maps, tasks, stats)
+    ref = instance_info(inst_maps, type_maps, tasks)
+    assert all(len(ref[t]) > 3 for t in ref)
+    _assert_records_equal(got, ref)
+
+
+def _stub_step(self, batch, out_sz):
+    return torch.from_numpy(stub_outputs(batch.numpy(), out_sz))
+
+
+def _stub_manager():
+    return InferManager(model_args=MODEL_KWARGS,
+                        decoder_dict=dict(DEFAULT_TARGET_CODE), device="cpu",
+                        batch_size=4, patch_input_shape=IN_SHAPE,
+                        patch_output_shape=OUT_SHAPE)
+
+
+def _job(tmp_path, out, **extra):
+    _stub_manager().process_file_list(dict(
+        input_dir=str(tmp_path / "input"), output_dir=str(tmp_path / out),
+        batch_size=4, patch_input_shape=IN_SHAPE,
+        patch_output_shape=OUT_SHAPE, nr_inference_workers=0,
+        nr_post_proc_workers=0, **extra))
+
+
+def _write_inputs(tmp_path):
+    import cv2
+
+    os.makedirs(tmp_path / "input")
+    sizes = {"a": (100, 120), "b": (130, 90), "c": (70, 70)}
+    for k, (name, hw) in enumerate(sizes.items()):
+        cv2.imwrite(str(tmp_path / "input" / ("%s.png" % name)),
+                    cv2.cvtColor(_image(40 + k, hw), cv2.COLOR_RGB2BGR))
+    return sizes
+
+
+def _assert_outputs_equal(got_dir, ref_dir, names):
+    for name in names:
+        for task in ("gland", "lumen", "nuclei", "pclass"):
+            got = sio.loadmat(str(got_dir / ("%s_mat" % task)
+                                  / ("%s.mat" % name)))
+            ref = sio.loadmat(str(ref_dir / ("%s_mat" % task)
+                                  / ("%s.mat" % name)))
+            keys = [k for k in ref if not k.startswith("__")]
+            assert sorted(k for k in got if not k.startswith("__")) == \
+                sorted(keys)
+            for key in keys:
+                assert got[key].dtype == ref[key].dtype, (name, task, key)
+                np.testing.assert_array_equal(got[key], ref[key])
+        with open(got_dir / "overlay" / ("%s.jpg" % name), "rb") as a, \
+                open(ref_dir / "overlay" / ("%s.jpg" % name), "rb") as b:
+            assert a.read() == b.read(), name
+
+
+def test_process_file_list_tables_write_the_upscaled_map_records(
+        tmp_path, monkeypatch):
+    """The ``gpu`` backend on the CPU (the plain ``inst_stats``): the job
+    calls the module-global ``post_process_canvas`` once a file with the
+    canvas first (the seam the tile benchmark observes), and writes the
+    ``.mat`` files and overlays that the records of ``get_inst_info_dict``
+    on the 2x-upscaled maps give (the same job with the tables withheld)."""
+    monkeypatch.setattr(InferManager, "run_step", _stub_step)
+    sizes = _write_inputs(tmp_path)
+    made = port_tile.post_process_canvas
+    calls = []
+
+    def observed(canvas, *args, **kwargs):
+        calls.append((tuple(canvas.shape), sorted(kwargs)))
+        return made(canvas, *args, **kwargs)
+
+    monkeypatch.setattr(port_tile, "post_process_canvas", observed)
+    _job(tmp_path, "tables")
+    assert calls == [((*sizes[n], 9), ["stats"]) for n in sorted(sizes)]
+
+    def withheld(canvas, *args, stats=None, **kwargs):
+        return made(canvas, *args, **kwargs)
+
+    monkeypatch.setattr(port_tile, "post_process_canvas", withheld)
+    _job(tmp_path, "upscaled")
+    mat = sio.loadmat(str(tmp_path / "tables" / "nuclei_mat" / "a.mat"))
+    assert mat["id"].size > 3 and mat["id"].dtype == np.float64
+    _assert_outputs_equal(tmp_path / "tables", tmp_path / "upscaled",
+                          sorted(sizes))
+
+
+def test_cpu_backend_and_predictor_records_are_unchanged(tmp_path,
+                                                         monkeypatch):
+    """``--postproc_backend=cpu`` has no table: its job writes what
+    ``_host_postproc_and_info`` gives; the predictor's records, on either
+    backend, are ``get_inst_info_dict``'s on the 2x-upscaled maps."""
+    monkeypatch.setattr(InferManager, "run_step", _stub_step)
+    sizes = _write_inputs(tmp_path)
+    _job(tmp_path, "cpu", postproc_backend="cpu")
+    manager = _stub_manager()
+    for k, (name, hw) in enumerate(sizes.items()):
+        inst, info, types, _ = _host_postproc_and_info(
+            manager.infer_canvas(_image(40 + k, hw)).numpy(),
+            dict(DEFAULT_TARGET_CODE), list(DEFAULT_TARGET_LIST),
+            DEFAULT_DECODER_KWARGS)
+        for task in ("Gland", "Lumen", "Nuclei"):
+            mat = sio.loadmat(str(tmp_path / "cpu" / ("%s_mat" % task.lower())
+                                  / ("%s.mat" % name)))
+            np.testing.assert_array_equal(mat["inst_map"], inst[task])
+            np.testing.assert_array_equal(
+                np.ravel(mat["id"]), np.array(list(info[task]), np.float64))
+            np.testing.assert_array_equal(
+                np.ravel(mat["type"]),
+                [d.get("type", -1) for d in info[task].values()])
+    img = _image(40, sizes["a"])
+    for backend in ("gpu", "cpu"):
+        predictor = CerberusPredictor(
+            checkpoint_path=None, model_args=MODEL_KWARGS,
+            decoder_dict=dict(DEFAULT_TARGET_CODE), batch_size=4,
+            patch_input_shape=IN_SHAPE, patch_output_shape=OUT_SHAPE,
+            postproc_backend=backend, device="cpu")
+        got = predictor.predict_tile(img)
+        inst = {t: got[t]["inst_map"] for t in ("Gland", "Lumen", "Nuclei")}
+        types = {t: got[t]["type_map"] for t in inst}
+        ref = instance_info(inst, types, list(DEFAULT_TARGET_LIST))
+        assert len(ref["Nuclei"]) > 3
+        _assert_records_equal({t: got[t]["inst_info"] for t in inst}, ref)

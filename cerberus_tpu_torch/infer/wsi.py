@@ -35,7 +35,9 @@ the main thread's waits and host work have spans of their own (the
 resident loop's ``wsi/read_wait``, ``wsi/land_wait``,
 ``wsi/records_wait``; per tissue region ``wsi/region_wait`` on the
 prefetch and ``wsi/region_info`` for the lumen gating and the instance
-records), summed over the slide and logged once.
+records), summed over the slide and logged once. A slide whose forwards
+synthesised G-conv kernels (DSF-CNN) also logs ``Steerable Kernel
+Syntheses: <n>``, their count (``models/gconv.synth_counts``).
 
 Device work is enqueued by the calling thread only; host threads do the
 disk reads, resizes, contours and dedup. The device half of each step
@@ -72,6 +74,7 @@ import numpy as np
 import torch
 
 from ..data.patching import make_channel_index_map
+from ..models import gconv
 from ..ops.cc_cpu import label as cc_label
 from ..ops.device_postproc import KERNELS, Impl
 from ..ops.gpu_postproc import GPU_POSTPROC_FUNC_DICT, pad_to_512
@@ -530,6 +533,7 @@ class InferManager(BaseInferManager):
     def process_single_file(self, ioconfig, ioconfig_pp, wsi_path, mask_path,
                             wsi_basename, output_dir):
         logger = self.logger
+        syntheses = gconv.synth_counts["kernels"]
 
         with trace_span("wsi/placement", logger,
                         label="Preparing Input Output Placement"):
@@ -675,6 +679,9 @@ class InferManager(BaseInferManager):
                 deferred = range(len(pp_sets[0][0]))
                 logger.info("Legacy Read Time: %.4f" % read_s)
                 logger.info("Legacy Read Wait Time: %.4f" % read_wait_s)
+        syntheses = gconv.synth_counts["kernels"] - syntheses
+        if syntheses:
+            logger.info("Steerable Kernel Syntheses: %d" % syntheses)
 
         # ===== nuclei post-processing (sets 1-3, deferred set 0) =========
         with trace_span("wsi/nuclei_sets", logger,

@@ -14,6 +14,10 @@ stack, ``models/utils/gconv_utils.py`` and ``gconv_layers.py``):
     (``group_pool``); concatenation along the channel axis inside each
     orientation (``group_concat_channels``).
 
+``synth_counts["kernels"]`` counts the kernels ``GConv2d`` synthesises:
+one per G-convolution a forward, so a unit of work reads its share as the
+difference around it.
+
 Channel layout: the channel axis is orientation-major, ``O * C`` flattened
 from ``(O, C)``, the reference's own ``(N, O*C, H, W)``. A G-convolution's
 parameter is ``weight`` of shape ``(2, 1, Q, 1, 1, O_in, in, out)``, the
@@ -39,6 +43,8 @@ BASIS_INFO = {
     7: ([0, 1, 2, 3], [0, 1, 2, 3], [0, 2, 3, 2]),
     9: ([0, 1, 2, 3, 4], [0, 1, 2, 3, 4], [0, 3, 4, 4, 3]),
 }
+
+synth_counts = {"kernels": 0}
 
 
 @lru_cache(maxsize=None)
@@ -135,6 +141,7 @@ class GConv2d(nn.Module):
             _roll_index(nr_orients_out, nr_orients_in)), persistent=False)
 
     def kernel(self) -> torch.Tensor:
+        synth_counts["kernels"] += 1
         return synthesize_kernel(self.weight, self.basis, self.nr_orients_in,
                                  self.roll)
 

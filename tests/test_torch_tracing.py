@@ -170,6 +170,7 @@ def test_every_idle_metric_is_in_the_benchmark():
         entry = entries[name]
         assert entry["unit"] == "s/Mpx" and entry["better"] == "lower"
         assert entry["source"] == "device_trace"
-        cell = "r34-tiles" if name.startswith("tile_") else "r34-wsi"
-        assert entry["workloads"] == [cell]
+        cells = (["r34-tiles"] if name.startswith("tile_")
+                 else ["r34-wsi", "dsf8-wsi"])
+        assert entry["workloads"] == cells
         assert load_module("metrics", name).SPANS == spans
